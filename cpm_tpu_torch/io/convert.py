@@ -1,0 +1,104 @@
+"""Carry scenes and pipeline state across from the reference package as
+numpy arrays.
+
+Leaves are keyed by the reference objects' field paths, e.g.
+``photons.positions``, ``light_samples.tspan``, ``tf.colors``. A reference
+``Scene``/``PhotonMapState`` flattened to such a dict builds the port's
+objects, so both packages can start from the same state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cpm_tpu_torch.core.camera import Camera
+from cpm_tpu_torch.core.scene import Scene
+from cpm_tpu_torch.core.types import (LightSamples, PhotonData,
+                                      TransferFunction, Volume)
+from cpm_tpu_torch.pipeline.state import PhotonMapState
+
+_PHOTON_ARRAYS = ("positions", "powers", "directions", "exit_power",
+                  "exit_direction")
+_SAMPLE_ARRAYS = ("origins", "directions", "powers", "tspan")
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    a = np.array(a, dtype=np.float32 if a.dtype.kind == "f" else a.dtype,
+                 order="C", copy=True)
+    return torch.from_numpy(a).to(device)
+
+
+def scene_from_numpy(leaves: dict, lights, device=None) -> Scene:
+    """The port's Scene from ``volume.*``, ``tf.*``, ``tf_scattering.*`` and
+    ``camera.*`` arrays; ``lights`` are the reference's host-side
+    ``cpm_tpu.core.lights.Light`` objects, which both packages share."""
+    def tf(prefix):
+        return TransferFunction(
+            positions=_tensor(leaves[f"{prefix}.positions"], device),
+            colors=_tensor(leaves[f"{prefix}.colors"], device),
+            lut=_tensor(leaves[f"{prefix}.lut"], device))
+
+    volume = Volume(data=_tensor(leaves["volume.data"], device),
+                    basis=_tensor(leaves["volume.basis"], device),
+                    offset=_tensor(leaves["volume.offset"], device))
+    camera = Camera(eye=_tensor(leaves["camera.eye"], device),
+                    center=_tensor(leaves["camera.center"], device),
+                    up=_tensor(leaves["camera.up"], device),
+                    fov_y=float(np.float32(leaves["camera.fov_y"])))
+    return Scene(volume=volume, tf=tf("tf"),
+                 tf_scattering=tf("tf_scattering"), camera=camera,
+                 lights=tuple(lights))
+
+
+def state_from_numpy(leaves: dict, device=None) -> PhotonMapState:
+    """The port's PhotonMapState from the reference state's arrays."""
+    photons = PhotonData(
+        **{f: _tensor(leaves[f"photons.{f}"], device) for f in _PHOTON_ARRAYS},
+        radius_rel=float(np.float32(leaves["photons.radius_rel"])),
+        scene_radius=float(np.float32(leaves["photons.scene_radius"])),
+        iteration=int(leaves["photons.iteration"]))
+    samples = LightSamples(
+        **{f: _tensor(leaves[f"light_samples.{f}"], device)
+           for f in _SAMPLE_ARRAYS},
+        iteration=int(leaves["light_samples.iteration"]))
+    key = np.asarray(leaves["key"]).astype(np.uint32)
+    prev = leaves.get("prev_minmax")
+    return PhotonMapState(
+        photons=photons, light_samples=samples,
+        light_volume=_tensor(leaves["light_volume"], device),
+        light_volume_accum=_tensor(leaves["light_volume_accum"], device),
+        key=(int(key[0]), int(key[1])),
+        retraced=_tensor(leaves["retraced"], device).to(torch.bool),
+        n_remaining=int(leaves["n_remaining"]),
+        recompute_phase=int(leaves["recompute_phase"]),
+        prev_minmax=None if prev is None else _tensor(prev, device))
+
+
+def state_to_numpy(state: PhotonMapState) -> dict:
+    """The inverse of :func:`state_from_numpy`."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    ph, ls = state.photons, state.light_samples
+    out = {f"photons.{f}": arr(getattr(ph, f)) for f in _PHOTON_ARRAYS}
+    out.update({
+        "photons.radius_rel": np.float32(ph.radius_rel),
+        "photons.scene_radius": np.float32(ph.scene_radius),
+        "photons.iteration": np.int32(ph.iteration),
+    })
+    out.update({f"light_samples.{f}": arr(getattr(ls, f))
+                for f in _SAMPLE_ARRAYS})
+    out.update({
+        "light_samples.iteration": np.int32(ls.iteration),
+        "light_volume": arr(state.light_volume),
+        "light_volume_accum": arr(state.light_volume_accum),
+        "key": np.asarray(state.key, np.uint32),
+        "retraced": arr(state.retraced),
+        "n_remaining": np.int32(state.n_remaining),
+        "recompute_phase": np.int32(state.recompute_phase),
+    })
+    if state.prev_minmax is not None:
+        out["prev_minmax"] = arr(state.prev_minmax)
+    return out

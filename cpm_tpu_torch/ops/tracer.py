@@ -1,0 +1,224 @@
+"""Wavefront photon tracer: Woodcock (delta) tracking through a
+TF-classified volume with scattering, absorption and per-interaction
+photon deposition (``cpm_tpu/ops/tracer.py:trace_photons``, :253-601).
+
+All lanes advance together, one tentative flight per lane per wavefront
+step, with the reference's per-lane state machine (:348-497) unchanged:
+macrocell majorants, flights clamped at the exit of the (2*ring+1)^3
+block of cells, capped empty-space jumps, (lane, global step)-keyed
+threefry draws, and ``flights_per_iteration`` steps between two checks
+of the loop condition ``any(active) and step < max_steps``.
+
+The reference's packed brick table and staged lane compaction exist only
+for TPU gathers and leave the trajectories unchanged, so they are left
+out: the volume is sampled with direct trilinear gathers, and the
+majorant and skip distance a lane carries are read at the same voxel
+quantization as the brick column, ``grid[floor(clip(p*dim - 0.5)) //
+cell_size]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cpm_tpu.core import constants
+from cpm_tpu_torch.core.config import TracerConfig
+from cpm_tpu_torch.core.types import (LightSamples, PhotonData,
+                                      TransferFunction, Volume,
+                                      encode_direction, f32_scalar)
+from cpm_tpu_torch.ops import intersect, majorant as majorant_mod, rng
+from cpm_tpu_torch.ops import phase as phase_mod
+from cpm_tpu_torch.ops.sampling import sample_volume_trilinear, voxel_coords
+
+Tensor = torch.Tensor
+
+# Nudge past a macrocell boundary: large vs float32 ulp at ~1.0, small vs
+# a voxel.
+_BOUNDARY_EPS = 1e-5
+
+
+def _check_supported(config: TracerConfig, return_stats: bool,
+                     record_events: int) -> None:
+    missing = []
+    if return_stats:
+        missing.append("return_stats")
+    if record_events:
+        missing.append("record_events")
+    if config.no_single_scattering:
+        missing.append("no_single_scattering")
+    if config.photon_dtype != "float32":
+        missing.append(f"photon_dtype={config.photon_dtype!r}")
+    if missing:
+        raise NotImplementedError(
+            "not ported yet: " + ", ".join(missing))
+
+
+def majorant_grids(volume: Volume, tf: TransferFunction,
+                   config: TracerConfig):
+    """(maj, dist, maj_global, cell_min_ext): per-cell majorant opacity
+    (times tau_max), the capped empty-space distance map, their global max
+    and the texture extent of one skippable cell (tracer.py:164-176)."""
+    if config.use_majorant_grid:
+        maj = majorant_mod.build_majorant_grid(
+            volume, tf, config.majorant_cell_size, config.block_ring)
+    else:
+        maj = torch.ones((1, 1, 1), dtype=torch.float32,
+                         device=volume.device)
+    maj = maj * f32_scalar(config.tau_max)
+    dist = majorant_mod.empty_distance_grid(maj, cap=config.empty_jump_cap)
+    cell_min_ext = f32_scalar(1.0 / max(maj.shape))
+    return maj, dist, torch.amax(maj), cell_min_ext
+
+
+def trace_photons(volume: Volume, tf: TransferFunction,
+                  tf_scattering: TransferFunction,
+                  light_samples: LightSamples, base_key: tuple,
+                  config: TracerConfig, return_stats: bool = False,
+                  record_events: int = 0) -> PhotonData:
+    """Trace all light samples; returns a fresh PhotonData (radius fields
+    default-initialized, the pipeline owns the progressive state).
+
+    ``base_key`` is the (k0, k1) key; lane i draws the random stream of
+    photon id i.
+    """
+    _check_supported(config, return_stats, record_events)
+    dev = volume.device
+    n = light_samples.n
+    max_i = config.max_interactions
+    lane_ids = torch.arange(n, dtype=torch.int64, device=dev)
+    k0, k1 = int(base_key[0]), int(base_key[1])
+
+    maj, dist, maj_global, cell_min_ext = majorant_grids(volume, tf, config)
+    gz, gy, gx = maj.shape
+    g_hi = torch.tensor([gx - 1, gy - 1, gz - 1], device=dev)
+    maj_flat, dist_flat = maj.reshape(-1), dist.reshape(-1)
+
+    sbi = f32_scalar(constants.SAMPLING_BASE_INTERVAL_RCP)
+    shape = volume.shape_zyx
+    d_, h_, w_ = shape
+    vdims = torch.tensor([w_, h_, d_], dtype=torch.float32, device=dev)
+    cell_vox = config.majorant_cell_size
+    cell_ext = float(cell_vox) / vdims  # cell extent, texture units
+    step_size = f32_scalar(1.0 / (config.sampling_rate * max(shape)))
+    big = float(constants.FLT_MAX)
+    ring = config.block_ring
+    phase_g = f32_scalar(config.phase_g)
+
+    def cell_of(p: Tensor) -> Tensor:
+        return torch.floor(voxel_coords(shape, p)).to(torch.int64) // cell_vox
+
+    def grid_at(cell: Tensor):
+        c = torch.minimum(cell, g_hi)
+        idx = (c[:, 2] * gy + c[:, 1]) * gx + c[:, 0]
+        return maj_flat[idx], dist_flat[idx]
+
+    t = light_samples.tspan[:, 0]
+    t_end = light_samples.tspan[:, 1]
+    clip_lo = torch.tensor(config.clip_min, dtype=torch.float32, device=dev)
+    clip_hi = torch.tensor(config.clip_max, dtype=torch.float32, device=dev)
+    if config.clip_min != (0.0, 0.0, 0.0) or \
+            config.clip_max != (1.0, 1.0, 1.0):
+        chit, ct0, ct1 = intersect.ray_box(
+            light_samples.origins, light_samples.directions, clip_lo, clip_hi)
+        t = torch.maximum(t, torch.where(chit, ct0, 0.0))
+        t_end = torch.minimum(t_end, torch.where(chit, ct1, -1.0))
+
+    pos = light_samples.origins
+    dir_ = light_samples.directions
+    power = light_samples.powers / float(max_i)
+    n_int = torch.zeros(n, dtype=torch.int64, device=dev)
+    active = t < t_end
+    absorbed = torch.zeros(n, dtype=torch.bool, device=dev)
+    maj_carry = maj_global.expand(n)
+    dist_carry = torch.zeros(n, dtype=torch.float32, device=dev)
+    out_pos = torch.full((n, max_i, 3), big, dtype=torch.float32, device=dev)
+    out_pow = torch.zeros((n, max_i, 3), dtype=torch.float32, device=dev)
+    out_dir = torch.zeros((n, max_i, 2), dtype=torch.float32, device=dev)
+    col_ids = torch.arange(max_i, device=dev)[None, :]  # (1, I)
+
+    step = 0
+    k_unroll = max(1, config.flights_per_iteration)
+    while step < config.max_steps and bool(active.any()):
+        for _ in range(k_unroll):
+            u = rng.uniforms(k0, k1, lane_ids, step, 5)
+            # --- macrocell delta-tracking step ---
+            p_cur = pos + t[:, None] * dir_
+            maj_op = maj_carry
+            t_cell = majorant_mod.block_exit_distance(
+                pos, dir_, cell_of(p_cur), cell_ext, ring=ring)
+            t_cell = torch.maximum(t_cell, t)
+
+            dt = -torch.log(torch.clamp(u[:, 0], min=1e-12)) / torch.clamp(
+                maj_op * sbi, min=1e-12)
+            t_tent = t + dt
+            # Null event: empty cell or a flight past the block exit. Empty
+            # cells also jump (D-1) cells along the distance map.
+            empty = maj_op <= 0.0
+            skip = empty | (t_tent > t_cell)
+            t_jump = t + torch.clamp(dist_carry - 1.0, min=0.0) * cell_min_ext
+            t_clamp = torch.where(empty, torch.maximum(t_cell, t_jump),
+                                  t_cell)
+            t_new = torch.where(skip, t_clamp + _BOUNDARY_EPS, t_tent)
+            exited = t_new > t_end
+
+            p = pos + t_new[:, None] * dir_
+            vol_sample = sample_volume_trilinear(volume.data, p)
+            maj_at_p, dist_at_p = grid_at(cell_of(p))
+            opacity = tf.sample_opacity(vol_sample)
+            # Acceptance against the local majorant: P = sigma / sigma_maj.
+            accept = u[:, 1] * maj_op < opacity
+            interact = active & ~exited & ~skip & accept
+
+            # --- interaction (photontracer.cl:158-197) ---
+            scat_w = tf_scattering.sample_opacity(vol_sample)
+            albedo = scat_w / torch.clamp(scat_w + opacity, min=1e-8)
+            power_in = power / torch.clamp(opacity, min=0.01)[:, None]
+            n_int_new = n_int + 1
+            do_scatter = interact & (n_int_new < max_i) & (u[:, 2] < albedo)
+            do_absorb = interact & ~do_scatter
+
+            power_scat = power_in * albedo[:, None]
+            stored_power = torch.where(do_scatter[:, None], power_scat,
+                                       power_in)
+            # Deposit at slot (lane, n_int); the stored direction is the
+            # incoming one.
+            slot = ((col_ids == n_int[:, None]) & interact[:, None])[..., None]
+            out_pos = torch.where(slot, p[:, None, :], out_pos)
+            out_pow = torch.where(slot, stored_power[:, None, :], out_pow)
+            out_dir = torch.where(slot, encode_direction(dir_)[:, None, :],
+                                  out_dir)
+
+            # --- new direction for scattered photons ---
+            new_dir, _ = phase_mod.sample_phase(
+                config.phase_type, dir_, phase_g, u[:, 3], u[:, 4])
+            hit, bt0, bt1 = intersect.ray_box(p, new_dir, clip_lo, clip_hi)
+            still_active = active & ~exited & (~interact | (do_scatter & hit))
+
+            pos = torch.where(do_scatter[:, None], p, pos)
+            dir_ = torch.where(do_scatter[:, None], new_dir, dir_)
+            # Nudge past the interaction point (photontracer.cl:181-183).
+            t = torch.where(do_scatter, bt0 + 0.5 * step_size,
+                            torch.where(interact, t, t_new))
+            t_end = torch.where(do_scatter, bt1, t_end)
+            power = torch.where(
+                interact[:, None],
+                torch.where(do_scatter[:, None], power_scat, big), power)
+            n_int = torch.where(interact, n_int_new, n_int)
+            active = still_active
+            absorbed = absorbed | do_absorb
+            # After a direction change the next segment may start in
+            # another cell: carry the global majorant for one step.
+            maj_carry = torch.where(do_scatter, maj_global, maj_at_p)
+            dist_carry = torch.where(do_scatter, 0.0, dist_at_p)
+            step += 1
+
+    return PhotonData(
+        positions=out_pos.transpose(0, 1).contiguous(),
+        powers=out_pow.transpose(0, 1).contiguous(),
+        directions=out_dir.transpose(0, 1).contiguous(),
+        exit_power=torch.where(absorbed, big, power[:, 0]),
+        exit_direction=encode_direction(dir_),
+        radius_rel=f32_scalar(config.radius_rel),
+        scene_radius=f32_scalar(constants.DEFAULT_SCENE_RADIUS),
+        iteration=0,
+    )

@@ -1,0 +1,233 @@
+"""The port's forward frame (init_state -> full_trace_step -> render_state)
+against the JAX reference from the same converted state, the port's
+radial splat + sweep against the float64 oracle, the state conversion,
+and a run of the port with JAX made unimportable (CPU, 16^3 volume,
+32^2 photons)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+
+from cpm_tpu.core import camera as jcamera
+from cpm_tpu.core import constants
+from cpm_tpu.core import lights as jlights
+from cpm_tpu.core import scene as jscene
+from cpm_tpu.core import types as jtypes
+from cpm_tpu.core.config import PipelineConfig as JPipelineConfig
+from cpm_tpu.core.config import RenderConfig as JRenderConfig
+from cpm_tpu.core.config import TracerConfig as JTracerConfig
+from cpm_tpu.io import synthetic
+from cpm_tpu.oracle import reference as oracle
+from cpm_tpu.pipeline import step as jstep
+from cpm_tpu_torch.core.config import (PipelineConfig, RenderConfig,
+                                       TracerConfig)
+from cpm_tpu_torch.io import convert
+from cpm_tpu_torch.ops import splat as tsplat
+from cpm_tpu_torch.ops import sweep_render as tsw
+from cpm_tpu_torch.pipeline import step as tstep
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# Whole frame from the same state: relative L1 of light volume and image.
+FRAME_REL_L1 = 1e-2
+# Emitted light samples: float32 elementwise math in two frameworks.
+EMIT_RTOL = EMIT_ATOL = 1e-6
+# Radial splat vs the float64 oracle, and the image vs the float64 DVR
+# oracle (tests/test_golden_image.py).
+RADIAL_RTOL, RADIAL_ATOL = 1e-4, 1e-6
+IMAGE_MAX_ERR, IMAGE_MEAN_ERR = 2e-3, 5e-5
+
+TRACER = dict(max_interactions=2, max_steps=2000)
+RENDER = dict(width=24, height=24, sampling_rate=2.0)
+PHOTONS = dict(photons_x=32, photons_y=32)
+EYE = (0.45, 0.6, -1.5)
+
+
+def leaves_of(tree) -> dict:
+    """A reference pytree as {field path: numpy array}."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {".".join(str(getattr(k, "name", getattr(k, "key", k)))
+                     for k in path): np.asarray(leaf)
+            for path, leaf in flat}
+
+
+def rel_l1(got, want):
+    return float(np.abs(got - want).sum() / np.abs(want).sum())
+
+
+@pytest.fixture(scope="module")
+def frame():
+    scene = jscene.Scene.create(
+        jtypes.Volume.from_data(synthetic.smoke_cloud(16, seed=6)),
+        jtypes.TransferFunction.from_points(*synthetic.default_tf_points()),
+        jtypes.TransferFunction.from_points(
+            *synthetic.default_scattering_points()),
+        [jlights.Light.directional((0.0, -1.0, 0.3))],
+        jcamera.Camera.create(eye=EYE))
+    jcfg = JPipelineConfig(tracer=JTracerConfig(**TRACER),
+                           render=JRenderConfig(**RENDER), **PHOTONS)
+    tcfg = PipelineConfig(tracer=TracerConfig(**TRACER),
+                          render=RenderConfig(**RENDER), **PHOTONS)
+    state0 = jstep.init_state(scene, jcfg)
+    state1 = jstep.full_trace_step(scene, state0, jcfg)
+    image = np.asarray(jstep.render_state(scene, state1, jcfg))
+    tscene = convert.scene_from_numpy(leaves_of(scene), scene.lights)
+    return scene, state0, state1, image, tscene, tcfg
+
+
+def test_init_state_matches(frame):
+    scene, state0, _, _, tscene, tcfg = frame
+    want = leaves_of(state0)
+    got = convert.state_to_numpy(tstep.init_state(tscene, tcfg))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype, k
+        np.testing.assert_allclose(got[k], w, rtol=EMIT_RTOL, atol=EMIT_ATOL,
+                                   err_msg=k)
+
+
+def test_state_round_trip(frame):
+    _, _, state1, _, _, _ = frame
+    leaves = leaves_of(state1)
+    back = convert.state_to_numpy(convert.state_from_numpy(leaves))
+    assert sorted(back) == sorted(leaves)
+    for k, v in leaves.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
+def test_full_frame_matches(frame):
+    """full_trace_step + render_state from the reference's own initial
+    state: light volume and image within 1% relative L1."""
+    _, state0, state1, image, tscene, tcfg = frame
+    tstate = convert.state_from_numpy(leaves_of(state0))
+    tstate = tstep.full_trace_step(tscene, tstate, tcfg)
+    timage = tstep.render_state(tscene, tstate, tcfg).numpy()
+    lv, want_lv = tstate.light_volume.numpy(), np.asarray(state1.light_volume)
+    print(f"light volume rel L1 {rel_l1(lv, want_lv):.3e}, image rel L1 "
+          f"{rel_l1(timage, image):.3e}")
+    assert lv.shape == want_lv.shape == (65, 65, 65, 3)
+    assert timage.shape == image.shape == (24, 24, 4)
+    assert float(np.abs(want_lv).sum()) > 0.0
+    assert image[..., 3].max() > 0.1
+    assert rel_l1(lv, want_lv) < FRAME_REL_L1
+    assert rel_l1(timage, image) < FRAME_REL_L1
+    np.testing.assert_array_equal(tstate.light_volume_accum.numpy(), lv)
+
+
+def test_radial_splat_and_sweep_match_float64_oracle(frame):
+    """The port's own trace -> radial scatter splat -> sweep against a
+    float64 numpy photon-map render (tests/test_golden_image.py)."""
+    _, state0, _, _, tscene, tcfg = frame
+    tstate = convert.state_from_numpy(leaves_of(state0))
+    photons = tstep.full_trace_step(tscene, tstate, tcfg).photons
+    lv_dim = (8, 8, 8)
+    lv = tsplat.splat_all(photons, lv_dim, footprint=4, method="scatter")
+
+    i, n, _ = photons.positions.shape
+    pos = photons.positions.numpy().reshape(i * n, 3).astype(np.float64)
+    pw = photons.powers.numpy().reshape(i * n, 3).astype(np.float64)
+    valid = pos[:, 0] < 1e30
+    assert valid.sum() > 100
+    scale = float(constants.ISOTROPIC_PHASE * jtypes.relative_irradiance_scale(
+        n, np.float32(photons.radius_rel)))
+    lv_oracle = oracle.splat_oracle(pos, pw, valid, photons.radius_rel,
+                                    scale, lv_dim)
+    np.testing.assert_allclose(lv.numpy(), lv_oracle, rtol=RADIAL_RTOL,
+                               atol=RADIAL_ATOL)
+
+    cam = tscene.camera
+    axis, sign = tsw.principal_axis(cam)
+    _, inter, (u_lo, u_hi, v_lo, v_hi, za) = tsw._sweep_core(
+        tscene.volume.data, tscene.tf, lv, cam, axis=axis, sign=sign,
+        n_planes=32, inter_u=24, inter_v=24, width=24, height=24,
+        ambient=0.05)
+    V, U = inter.shape[:2]
+    u = float(u_lo) + (np.arange(U) + 0.5) / U * float(u_hi - u_lo)
+    v = float(v_lo) + (np.arange(V) + 0.5) / V * float(v_hi - v_lo)
+    b_axis, c_axis = [a for a in range(3) if a != axis]
+    P = np.zeros((V, U, 3), np.float64)
+    P[..., axis] = float(za[0])
+    P[..., b_axis] = u[None, :]
+    P[..., c_axis] = v[:, None]
+    o = np.broadcast_to(np.asarray(EYE, np.float64), P.shape).reshape(-1, 3)
+    tf_pos, tf_cols = synthetic.default_tf_points()
+    golden = oracle.dvr_zplane_oracle(
+        tscene.volume.data.numpy().astype(np.float64),
+        np.asarray(tf_pos, np.float64), np.asarray(tf_cols, np.float64),
+        lv_oracle, o, P.reshape(-1, 3) - o, za.numpy().astype(np.float64),
+        axis, 0.05).reshape(inter.shape)
+    err = np.abs(inter.numpy() - golden)
+    assert golden[..., 3].max() > 0.1
+    assert err.max() < IMAGE_MAX_ERR, err.max()
+    assert err.mean() < IMAGE_MEAN_ERR, err.mean()
+
+
+@pytest.mark.parametrize("what", ["march", "trace_chunk", "hilbert",
+                                  "guided"])
+def test_unported_paths_raise(frame, what):
+    _, state0, _, _, tscene, _ = frame
+    small = dict(tracer=TracerConfig(max_interactions=1, max_steps=50),
+                 photons_x=4, photons_y=4)
+    if what == "march":
+        cfg = PipelineConfig(render=RenderConfig(method="march"), **small)
+        state = tstep.init_state(tscene, cfg)
+        with pytest.raises(NotImplementedError):
+            tstep.render_state(tscene, state, cfg)
+        return
+    if what == "trace_chunk":
+        cfg = PipelineConfig(
+            tracer=TracerConfig(max_interactions=1, trace_chunk=8),
+            photons_x=4, photons_y=4)
+        state = tstep.init_state(tscene, cfg)
+        with pytest.raises(NotImplementedError):
+            tstep.full_trace_step(tscene, state, cfg)
+        return
+    extra = ({"sample_order": "hilbert"} if what == "hilbert"
+             else {"guided_emission": True})
+    with pytest.raises(NotImplementedError):
+        tstep.init_state(tscene, PipelineConfig(**small, **extra))
+
+
+def test_port_needs_no_jax():
+    """With jax, jaxlib and flax made unimportable, the port and chip_smoke
+    import and a 16^3 volume / 16^2 photon / 16^2 pixel frame runs on the
+    CPU, having loaded no module of the reference beyond the four
+    numpy-only ones the port shares with it."""
+    script = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax"):
+            sys.modules[name] = None
+        import numpy as np
+        import torch
+        import cpm_tpu_torch
+        import chip_smoke
+        from cpm_tpu_torch.kernels import splat_product
+        scene, config = chip_smoke.build_frame(
+            torch.device("cpu"), vol_dim=16, photons=16, max_interactions=2,
+            width=16, max_steps=500)
+        state, image = chip_smoke.run_frame(scene, config)
+        assert tuple(image.shape) == (16, 16, 4)
+        assert bool(torch.isfinite(image).all())
+        assert int((state.photons.positions[..., 0] < 1e30).sum()) > 0
+        assert splat_product.splat_product.launches == 0
+        loaded = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "flax")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+        shared = {"cpm_tpu.core.constants", "cpm_tpu.core.lights",
+                  "cpm_tpu.io.synthetic", "cpm_tpu.ops.lightplane"}
+        packages = {"cpm_tpu", "cpm_tpu.core", "cpm_tpu.io", "cpm_tpu.ops"}
+        reference = {m for m in sys.modules if m.split(".")[0] == "cpm_tpu"}
+        assert reference - packages == shared, sorted(reference)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")

@@ -1,0 +1,184 @@
+"""The port's photon splat against the JAX reference: the plain product
+splat against ``splat_product_xla`` and the interpreted Pallas kernel, the
+radial scatter against the float64 oracle, the dispatch and its device
+rule, the wrapper's input checks, and (on a card only) the Hopper kernel
+against its plain version."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cpm_tpu.core import constants
+from cpm_tpu.core import types as jtypes
+from cpm_tpu.oracle.reference import splat_oracle
+from cpm_tpu.ops import splat as jsplat
+from cpm_tpu.pallas.splat_mxu import splat_product_pallas
+from cpm_tpu_torch.core import types as ttypes
+from cpm_tpu_torch.kernels import splat_product as sp
+from cpm_tpu_torch.ops import splat as tsplat
+
+# Product splat, plain version vs XLA twin and interpreted Pallas kernel:
+# the same float32 weights summed in another order (tests/test_splat.py).
+PRODUCT_RTOL, PRODUCT_ATOL = 1e-5, 1e-7
+# Radial scatter vs the float64 oracle: float32 weights and sums.
+RADIAL_RTOL, RADIAL_ATOL = 1e-4, 1e-6
+
+
+def _deposits(m, seed, sentinel_frac=0.3, lo=0.05, hi=0.95):
+    rs = np.random.default_rng(seed)
+    pos = rs.uniform(lo, hi, (m, 3)).astype(np.float32)
+    pw = rs.uniform(0.1, 2.0, (m, 3)).astype(np.float32)
+    unused = rs.random(m) < sentinel_frac
+    pos[unused] = constants.FLT_MAX
+    pw[unused] = 0.0
+    return pos, pw
+
+
+def _photons(n, max_i, seed, radius):
+    rs = np.random.default_rng(seed)
+    pos = rs.uniform(0.05, 0.95, (max_i, n, 3)).astype(np.float32)
+    pw = rs.uniform(0.1, 2.0, (max_i, n, 3)).astype(np.float32)
+    pos[rs.random((max_i, n)) < 0.3] = constants.FLT_MAX
+    common = dict(directions=np.zeros((max_i, n, 2), np.float32),
+                  exit_power=np.zeros(n, np.float32),
+                  exit_direction=np.zeros((n, 2), np.float32))
+    jph = jtypes.PhotonData(
+        positions=jnp.asarray(pos), powers=jnp.asarray(pw),
+        **{k: jnp.asarray(v) for k, v in common.items()},
+        radius_rel=jnp.float32(radius), scene_radius=jnp.float32(1.0),
+        iteration=jnp.int32(0))
+    tph = ttypes.PhotonData(
+        positions=torch.from_numpy(pos), powers=torch.from_numpy(pw),
+        **{k: torch.from_numpy(v) for k, v in common.items()},
+        radius_rel=float(np.float32(radius)), scene_radius=1.0)
+    return jph, tph, pos, pw
+
+
+@pytest.mark.parametrize("m,dim,radius", [(64, (16, 16, 16), 0.09),
+                                          (300, (17, 23, 29), 0.07),
+                                          (1000, (65, 65, 65), 0.0153866)])
+def test_plain_product_matches_xla(m, dim, radius):
+    pos, pw = _deposits(m, seed=m)
+    want = jsplat.splat_product_xla(jnp.asarray(pos), jnp.asarray(pw),
+                                    jnp.float32(radius), dim)
+    got = sp.splat_product_torch(torch.from_numpy(pos), torch.from_numpy(pw),
+                                 radius, dim)
+    assert got.shape == dim + (3,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=PRODUCT_RTOL, atol=PRODUCT_ATOL)
+
+
+@pytest.mark.parametrize("m,dim", [(64, (16, 16, 16)), (40, (9, 11, 13))])
+def test_plain_product_matches_interpreted_pallas(m, dim):
+    pos, pw = _deposits(m, seed=7 + m)
+    want = splat_product_pallas(jnp.asarray(pos), jnp.asarray(pw),
+                                jnp.float32(0.09), dim, interpret=True)
+    got = sp.splat_product(torch.from_numpy(pos), torch.from_numpy(pw),
+                           0.09, dim)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=PRODUCT_RTOL, atol=PRODUCT_ATOL)
+
+
+@pytest.mark.parametrize("method", ["matmul", "scatter", "auto"])
+def test_splat_all_matches_reference(method):
+    """Dispatch, irradiance scale, PRODUCT_KERNEL_MATCH and the validity
+    mask: the port's splat_all against the reference's, same method (on
+    CPU "auto" is the plain product in both)."""
+    jph, tph, _, _ = _photons(48, 2, seed=1, radius=0.09)
+    dim = (16, 16, 16)
+    want = jsplat.splat_all(jph, dim, footprint=5, method=method)
+    got = tsplat.splat_all(tph, dim, footprint=5, method=method)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=PRODUCT_RTOL, atol=PRODUCT_ATOL)
+
+
+@pytest.mark.parametrize("n,radius,dim,footprint", [
+    (48, 0.09, (16, 16, 16), 5), (40, 0.12, (8, 8, 8), 4),
+    (30, 0.07, (9, 12, 10), 4)])
+def test_radial_scatter_matches_oracle(n, radius, dim, footprint):
+    _, tph, pos, pw = _photons(n, 2, seed=n, radius=radius)
+    got = tsplat.splat_all(tph, dim, footprint=footprint, method="scatter")
+    flat_pos, flat_pw = pos.reshape(-1, 3), pw.reshape(-1, 3)
+    scale = float(constants.ISOTROPIC_PHASE
+                  * jtypes.relative_irradiance_scale(n, jnp.float32(radius)))
+    want = splat_oracle(flat_pos.astype(np.float64),
+                        flat_pw.astype(np.float64), flat_pos[:, 0] < 1e30,
+                        float(np.float32(radius)), scale, dim)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RADIAL_RTOL,
+                               atol=RADIAL_ATOL)
+
+
+def test_helpers_match_reference():
+    x = np.linspace(-0.2, 1.3, 301).astype(np.float32)
+    np.testing.assert_array_equal(
+        tsplat.epanechnikov(torch.from_numpy(x)).numpy(),
+        np.asarray(jsplat.epanechnikov(jnp.asarray(x))))
+    for r in (0.0153866, 0.09, 0.5, 1 / 64):
+        assert tsplat.light_volume_dim(r) == jsplat.light_volume_dim(r)
+    assert tsplat.PRODUCT_KERNEL_MATCH == jsplat.PRODUCT_KERNEL_MATCH
+
+
+def test_default_method_follows_the_tensors_device():
+    assert tsplat.default_method(torch.device("cpu")) == "matmul"
+    assert tsplat.default_method(torch.device("cuda", 0)) == "cuda"
+    assert tsplat.default_method("cuda") == "cuda"
+
+
+def test_wrapper_takes_cpu_tensors_to_the_plain_version():
+    pos, pw = _deposits(200, seed=3)
+    tpos, tpw = torch.from_numpy(pos), torch.from_numpy(pw)
+    before = sp.splat_product.launches
+    got = sp.splat_product(tpos, tpw, 0.07, (10, 12, 14))
+    assert sp.splat_product.launches == before  # no kernel on the CPU
+    torch.testing.assert_close(
+        got, sp.splat_product_torch(tpos, tpw, 0.07, (10, 12, 14)),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["float64", "shape", "strided", "length",
+                                 "meta", "radius", "out_dim"])
+def test_wrapper_raises_on_inputs_it_does_not_take(bad):
+    pos, pw = (torch.from_numpy(a) for a in _deposits(32, seed=4))
+    r, dim = 0.07, (8, 8, 8)
+    if bad == "float64":
+        pos = pos.double()
+    elif bad == "shape":
+        pos = pos[:, :2].contiguous()
+    elif bad == "strided":
+        pos = torch.cat([pos, pos], dim=1)[:, ::2]
+    elif bad == "length":
+        pw = pw[:-1]
+    elif bad == "meta":
+        pos, pw = pos.to("meta"), pw.to("meta")
+    elif bad == "radius":
+        r = float("nan")
+    else:
+        dim = (8, 0, 8)
+    with pytest.raises((TypeError, ValueError)):
+        sp.splat_product(pos, pw, r, dim)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_the_card(cuda_device):
+    """On the card: kernel vs plain version at the main path's shape.
+    Tolerance: atomics reorder the float32 sums (rtol 1e-4, atol 1e-6 of
+    the largest value)."""
+    pos, pw = _deposits(262144, seed=0, lo=0.0, hi=1.0)
+    tpos = torch.from_numpy(pos).to(cuda_device)
+    tpw = torch.from_numpy(pw).to(cuda_device)
+    dim = (65, 65, 65)
+    before = sp.splat_product.launches
+    got = sp.splat_product(tpos, tpw, 0.0153866, dim)
+    ref = sp.splat_product_torch(tpos, tpw, 0.0153866, dim)
+    torch.cuda.synchronize()
+    assert sp.splat_product.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-6 * float(ref.abs().max()))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
