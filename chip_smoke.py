@@ -3,33 +3,56 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero, printing
-no result, without them. In order it:
+no result, without them. It imports nothing but the port. In order it:
 
 1. prints the card's name and power limit;
-2. builds the sm_90a splat kernel from ``cpm_tpu_torch/csrc`` and prints
-   the build time;
-3. holds the kernel against its plain PyTorch version on seeded inputs at
-   the main path's shape (262,144 deposits, ~30% unused slots, into 65^3)
-   and at a ragged shape, and times both with CUDA events;
-4. drives the main path once through the user's entry points
-   (``init_state`` -> ``full_trace_step`` -> ``render_state``) at the
-   reference's interactive workload: a 128^3 smoke cloud, one directional
-   light, 256 x 256 photons with 4 interactions, a 65^3 light volume and a
-   512^2 image; asserts that the splat kernel was launched, that photons
-   were deposited, that the light volume and image are finite and the image
-   not empty, and that the kernel agrees with its plain version on the
-   frame's own deposits; then times each stage with CUDA events;
-5. runs a small frame (16^3 volume, 32^2 photons, 32^2 pixels) on the
+2. builds the sm_90a kernels from ``cpm_tpu_torch/csrc`` and prints the
+   build time and the compiler's resource report;
+3. holds both designs of the splat kernel (direct and tiled) against the
+   plain PyTorch version, and the binning kernels against the plain
+   binning, on seeded inputs with ~30% unused slots at four shapes, which
+   between them launch every instantiation the source builds: 262,144
+   deposits into 65^3 (the default frame's; windows of 5 cells), 1,000
+   into 17x23x29 (windows of 8), 20,000 into 17x23x29 at four times the
+   radius (windows of any width: the direct design alone, the tiled one
+   keeps no weights for them), and 16,777,216 into 65^3 (the large
+   frame's; the plain version once);
+4. times both designs in turns (direct, tiled, tiled, direct) at the
+   default and the large shape: device time (the kernels' and memsets' own
+   time, summed by name from a ``torch.profiler`` window), event-timed bare
+   launches through the C entry points, and the event-timed wrapper, each
+   beside the bound computed from the inputs; and the device time of both
+   at sizes between, which places the wrapper's choice of design;
+5. drives the main path through the user's entry points (``init_state`` ->
+   ``full_trace_step`` -> ``render_state``) with every kernel's launch
+   count set to 0 before and read after, on a scene built with no
+   ``device`` argument, which must lie on the card: first the reference's
+   interactive workload (a 128^3 smoke cloud, one directional light,
+   256 x 256 photons with 4 interactions, a 65^3 light volume, a 512^2
+   image), which launches the direct design, then the reference's large
+   workload (a 256^3 cloud, 2048 x 2048 photons, a 1024^2 image; traced in
+   one piece), which launches the binning and the tiled design; asserts
+   for each that the design the wrapper names was launched once, that
+   photons were deposited, that light volume and image are finite and the
+   image not empty, and that the light volume agrees with the plain splat
+   of the frame's own deposits; times both designs in turns on each
+   frame's own deposits, and on those of traces at photon counts between,
+   which is what the wrapper's threshold is held to; times each stage of
+   the default frame with CUDA events;
+6. runs a small frame (16^3 volume, 32^2 photons, 32^2 pixels) on the
    card and on the CPU, where the tests hold the port against the JAX
    reference, and asserts they agree (relative L1 under 1%);
-6. checks the tracer on the card against Beer-Lambert physics in a
+7. checks the tracer on the card against Beer-Lambert physics in a
    homogeneous volume;
-7. prints a ``kernels`` JSON line and, last, the device JSON line.
+8. prints a ``kernels`` JSON line and, last, the device JSON line.
+
+A failing phase raises; nothing is caught.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -37,14 +60,13 @@ import time
 import numpy as np
 import torch
 
-# The reference's numpy-only host modules, shared with the port.
-from cpm_tpu.core.lights import Light
-from cpm_tpu.io import synthetic
 from cpm_tpu_torch.core.camera import Camera
 from cpm_tpu_torch.core.config import (PipelineConfig, RenderConfig,
                                        TracerConfig)
+from cpm_tpu_torch.core.lights import Light
 from cpm_tpu_torch.core.scene import Scene
 from cpm_tpu_torch.core.types import TransferFunction, Volume
+from cpm_tpu_torch.io import synthetic
 from cpm_tpu_torch.kernels import splat_product as sp
 from cpm_tpu_torch.ops import emit, rng, sampling, splat, tracer
 from cpm_tpu_torch.pipeline import step
@@ -56,11 +78,12 @@ ATOL_REL = 1e-6  # absolute tolerance, relative to max |plain|
 FRAME_REL_L1 = 1e-2
 
 
-def build_frame(device, vol_dim=128, photons=256, max_interactions=4,
+def build_frame(device=None, vol_dim=128, photons=256, max_interactions=4,
                 width=512, max_steps=6000):
     """The reference's interactive workload (its bench.py default):
     smoke_cloud(vol_dim, seed=3), default TFs, one directional light at
-    (0, -1, 0.3), the default camera."""
+    (0, -1, 0.3), the default camera. With no ``device`` the scene is made
+    on the card, as the port's constructors make it."""
     volume = Volume.from_data(synthetic.smoke_cloud(vol_dim, seed=3),
                               device=device)
     tf = TransferFunction.from_points(*synthetic.default_tf_points(),
@@ -119,34 +142,271 @@ def compare(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
 
 def seeded_deposits(m: int, seed: int, sentinel_frac: float, device):
     rs = np.random.default_rng(seed)
-    pos = rs.uniform(0.0, 1.0, (m, 3)).astype(np.float32)
-    pw = rs.uniform(0.0, 1.0, (m, 3)).astype(np.float32)
-    unused = rs.random(m) < sentinel_frac
+    pos = rs.random((m, 3), dtype=np.float32)
+    pw = rs.random((m, 3), dtype=np.float32)
+    unused = rs.random(m, dtype=np.float32) < sentinel_frac
     pos[unused] = np.float32(3.4028235e38)
     pw[unused] = 0.0
     return torch.from_numpy(pos).to(device), torch.from_numpy(pw).to(device)
 
 
-def check_kernel(dev, tag) -> dict:
-    """Kernel vs plain version at the main-path and a ragged shape."""
-    r = 0.0153866
-    pos, pw = seeded_deposits(262144, 0, 0.3, dev)
-    main_dim = (65, 65, 65)
-    got = sp.splat_product(pos, pw, r, main_dim)
-    ref = sp.splat_product_torch(pos, pw, r, main_dim)
+# Shapes the kernels are held against their plain versions at: the
+# default frame's, a ragged one, the ragged one with windows wider than the
+# kernels keep weights for, and the large frame's (2048^2 photons x 4
+# interactions). width: the instantiation the shape must launch
+# (sp.kernel_width). reps: launches per timing window.
+RADIUS = 0.0153866
+SHAPES = {
+    "default": dict(m=262144, dim=(65, 65, 65), r=RADIUS, seed=0, width=5,
+                    reps=50),
+    "ragged": dict(m=1000, dim=(17, 23, 29), r=0.07, seed=1, width=8,
+                   reps=0),
+    "wide": dict(m=20000, dim=(17, 23, 29), r=0.14, seed=4, width=0, reps=0),
+    "large": dict(m=16777216, dim=(65, 65, 65), r=RADIUS, seed=2, width=5,
+                  reps=5),
+}
+# Sizes between the two, timed to place the threshold of the design choice:
+# seeded deposit counts, and photons per axis of traced frames.
+BETWEEN = (524288, 1048576, 4194304)
+BETWEEN_PHOTONS = (362, 512, 1024, 1448, 1774)
+TURNS = ("direct", "tiled", "tiled", "direct")
+CHOICE_SLACK = 0.10  # the chosen design may be this much slower than the other
+KERNEL_NAMES = ("splat_direct_kernel", "splat_tiled_kernel",
+                "bin_count_kernel", "bin_scan_kernel", "bin_fill_kernel")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+FP32_FLOP_PER_S = 67e12  # H100 SXM, published, outside the tensor cores
+
+DESIGNS = {"direct": sp.splat_product_direct,
+           "tiled": sp.splat_product_tiled}
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn``: the summed device time
+    of the splat's own kernels and of the memsets in a ``torch.profiler``
+    window over ``reps`` calls. 0.0 when the profiler shows no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
-    err = compare(got, ref, "splat kernel vs plain, 262144 deposits -> 65^3")
-    rpos, rpw = seeded_deposits(1000, 1, 0.3, dev)
-    rdim = (17, 23, 29)
-    compare(sp.splat_product(rpos, rpw, 0.07, rdim),
-            sp.splat_product_torch(rpos, rpw, 0.07, rdim),
-            "splat kernel vs plain, 1000 deposits -> 17x23x29")
-    ms = cuda_ms(lambda: sp.splat_product(pos, pw, r, main_dim), reps=50)
-    plain_ms = cuda_ms(lambda: sp.splat_product_torch(pos, pw, r, main_dim),
-                       reps=5)
-    print(f"splat at 262144 -> 65^3: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms ({tag})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for e in prof.key_averages():
+        if any(n in e.key for n in KERNEL_NAMES) or e.key.startswith("Memset"):
+            t = getattr(e, "self_device_time_total", None)
+            total_us += e.self_cuda_time_total if t is None else t
+    return total_us / reps / 1e3
+
+
+def bare_launcher(design: str, pos, pw, r: float, dim):
+    """A closure that enqueues one splat of the design through the
+    library's C entry points alone, into preallocated output and scratch:
+    what the wrapper launches, without the wrapper."""
+    lib = sp._library()
+    r = float(np.float32(r))
+    inv_r = float(sp.inverse_radius(r))
+    d, h, w = dim
+    m = pos.shape[0]
+    out = torch.empty((d, h, w, 3), dtype=torch.float32, device=pos.device)
+    width = sp.kernel_width(r, dim)
+    stream = torch.cuda.current_stream().cuda_stream
+    if design == "direct":
+        def launch():
+            err = lib.cpm_splat_direct(pos.data_ptr(), pw.data_ptr(), m, r,
+                                       inv_r, d, h, w, width,
+                                       out.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"CUDA error {err}")
+        return launch
+    items = sp.max_work_items(m, dim)
+    meta = torch.empty(3 * sp.brick_count(dim) + 2 + 3 * items,
+                       dtype=torch.int32, device=pos.device)
+    order = torch.empty(m, dtype=torch.int32, device=pos.device)
+
+    def launch():
+        err = lib.cpm_bin_deposits(pos.data_ptr(), m, sp.count_chunk(m),
+                                   sp.SEGMENT, d, h, w, meta.data_ptr(),
+                                   order.data_ptr(), stream)
+        err = err or lib.cpm_splat_tiled(
+            pos.data_ptr(), pw.data_ptr(), order.data_ptr(), meta.data_ptr(),
+            items, r, inv_r, d, h, w, sp.halo_cells(r, dim), width,
+            out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA error {err}")
+    return launch
+
+
+def splat_bound(pos, pw, r: float, dim) -> dict:
+    """The least time the card could take for this splat: bytes (every
+    deposit's 24 read once, the grid's 12 a cell written once) over the
+    memory rate against the operations this data needs (6 per weight of a
+    cell inside a support, 9 per nonzero term) over the fp32 rate."""
+    m = pos.shape[0]
+    byts = 24 * m + 12 * dim[0] * dim[1] * dim[2]
+    inv_r = float(sp.inverse_radius(r))
+    weights = terms = 0
+    for lo in range(0, m, 1 << 20):
+        p = pos[lo:lo + (1 << 20)]
+        nz = []
+        for axis, n in ((2, dim[0]), (1, dim[1]), (0, dim[2])):
+            c = sp.voxel_centres(n, pos.device)
+            dist = (c[None, :] - p[:, axis, None]) * inv_r
+            nz.append((dist * dist < 1.0).sum(1))
+        weights += int((nz[0] + nz[1] + nz[2]).sum())
+        terms += int((nz[0] * nz[1] * nz[2]).sum())
+    flop = 6 * weights + 9 * terms
+    by_bytes, by_ops = byts / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": byts, "flop": flop, "nonzero_terms": terms}
+
+
+def check_binning(pos, dim, what: str) -> int:
+    """The binning kernels against their plain version: counts and offsets
+    equal, every entry of a brick's segment a deposit of that brick, and
+    the segments together the live deposits exactly once each. Returns the
+    largest difference it saw between the kernels' integers (counts,
+    offsets, sorted segment entries) and the plain version's; raises
+    unless that is 0."""
+    meta, order = sp.bin_deposits(pos, dim)
+    torch.cuda.synchronize()
+    counts, offsets, want_order = sp.bin_deposits_torch(pos, dim)
+    nb = sp.brick_count(dim)
+    err = max(int((meta[:nb] - counts).abs().max()),
+              int((meta[2 * nb:3 * nb + 1] - offsets).abs().max()))
+    if err:
+        raise AssertionError(f"{what}: brick counts or offsets differ by up "
+                             f"to {err}")
+    live = int(offsets[-1])
+    got = order[:live].long()
+    if live and not (0 <= int(got.min()) and int(got.max()) < pos.shape[0]):
+        raise AssertionError(f"{what}: an index outside the deposits")
+    want_keys = torch.repeat_interleave(
+        torch.arange(nb, device=pos.device), counts)
+    if not torch.equal(sp.brick_keys(pos, dim)[got], want_keys):
+        raise AssertionError(f"{what}: a deposit lies in another brick's "
+                             "segment")
+    if live:
+        err = int((torch.sort(got).values
+                   - torch.sort(want_order).values).abs().max())
+    if err:
+        raise AssertionError(f"{what}: the segments do not hold every live "
+                             "deposit exactly once")
+    n_items = int(meta[3 * nb + 1])
+    work = meta[3 * nb + 2:3 * nb + 2 + 3 * n_items].reshape(-1, 3).long()
+    want_items = int(((counts + sp.SEGMENT - 1) // sp.SEGMENT).sum())
+    sizes = work[:, 2] - work[:, 1]
+    if n_items != want_items or int(sizes.sum()) != live or not bool(
+            ((sizes > 0) & (sizes <= sp.SEGMENT)).all()) or not torch.equal(
+                want_keys[work[:, 1]], work[:, 0]):
+        raise AssertionError(f"{what}: the work items do not cut the "
+                             "segments")
+    print(f"binning vs plain, {what}: {live} live deposits in "
+          f"{int((counts > 0).sum())} of {nb} bricks, {n_items} work items: "
+          f"max_abs_err {err}")
+    return err
+
+
+def timed_once(fn):
+    """(fn's result, its milliseconds from CUDA events), one call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def time_design(design: str, pos, pw, r, dim, reps: int) -> dict:
+    fn = DESIGNS[design]
+    dev = device_ms(lambda: fn(pos, pw, r, dim), reps)
+    bare = cuda_ms(bare_launcher(design, pos, pw, r, dim), max(reps, 200)
+                   if pos.shape[0] <= 1 << 20 else reps)
+    wrapper = cuda_ms(lambda: fn(pos, pw, r, dim), reps)
+    if dev == 0.0:
+        print("torch.profiler showed no device time; the kernel's time is "
+              "the event-timed run of bare launches")
+    return {"ms": dev if dev > 0.0 else bare, "profiler_ms": dev,
+            "bare_ms": bare, "wrapper_ms": wrapper}
+
+
+def check_kernels(dev, tag) -> dict:
+    """Every design against the plain version at every shape, the binning
+    against its plain version, and both designs timed in turns (direct,
+    tiled, tiled, direct) at the default and the large shape with the
+    bound beside each. Returns {shape: {...}}."""
+    results = {}
+    for name, shape in SHAPES.items():
+        m, dim, r = shape["m"], shape["dim"], shape["r"]
+        what = f"{m} deposits -> {'x'.join(map(str, dim))}"
+        pos, pw = seeded_deposits(m, shape["seed"], 0.3, dev)
+        ref, plain_once = timed_once(
+            lambda: sp.splat_product_torch(pos, pw, r, dim))
+        res = {"m": m, "dim": dim, "chosen": sp.choose_design(m, r, dim),
+               "max_abs_err": {}, **splat_bound(pos, pw, r, dim)}
+        if sp.kernel_width(r, dim) != shape["width"]:
+            raise AssertionError(f"{what}: windows of width "
+                                 f"{sp.kernel_width(r, dim)}, not the "
+                                 f"{shape['width']} this shape is here for")
+        for design, fn in DESIGNS.items():
+            if design == "tiled" and not sp.tiled_fits(r, dim):
+                if res["chosen"] != "direct":
+                    raise AssertionError(f"{what}: the tiled design does "
+                                         "not fit and was chosen")
+                print(f"splat tiled, {what}: does not fit, not launched")
+                continue
+            got = fn(pos, pw, r, dim)
+            torch.cuda.synchronize()
+            res["max_abs_err"][design] = compare(
+                got, ref, f"splat {design} vs plain, {what}")
+            del got
+        del ref
+        res["bin_max_abs_err"] = check_binning(pos, dim, what)
+        reps = shape["reps"]
+        if reps:
+            res["plain_ms"] = (cuda_ms(lambda: sp.splat_product_torch(
+                pos, pw, r, dim), reps=5) if m <= 1 << 20 else plain_once)
+            runs = [(d, time_design(d, pos, pw, r, dim, reps))
+                    for d in TURNS]
+            for design, t in runs:
+                print(f"splat {design} at {what}: device {t['ms']:.4f} ms, "
+                      f"bare launches {t['bare_ms']:.4f} ms, wrapper "
+                      f"{t['wrapper_ms']:.4f} ms; bound "
+                      f"{res['bound_ms']:.4f} ms ({res['bound_by']}), share "
+                      f"{res['bound_ms'] / t['ms']:.3f}; plain "
+                      f"{res['plain_ms']:.3f} ms ({tag})")
+            res["runs"] = [{"design": d, **t} for d, t in runs]
+            res["bin"] = {
+                "ms": device_ms(lambda: sp.bin_deposits(pos, dim), reps),
+                "wrapper_ms": cuda_ms(
+                    lambda: sp.bin_deposits(pos, dim), reps),
+                "plain_ms": cuda_ms(
+                    lambda: sp.bin_deposits_torch(pos, dim), 2),
+                "bound_ms": (12 * m + 4 * int(
+                    (pos[:, 0] < 1e30).sum())) / HBM_BYTES_PER_S * 1e3}
+            print(f"binning at {what}: device {res['bin']['ms']:.4f} ms, "
+                  f"wrapper {res['bin']['wrapper_ms']:.4f} ms, plain "
+                  f"{res['bin']['plain_ms']:.3f} ms, bound "
+                  f"{res['bin']['bound_ms']:.4f} ms (bytes) ({tag})")
+        results[name] = res
+        del pos, pw
+    for m in BETWEEN:
+        pos, pw = seeded_deposits(m, 3, 0.3, dev)
+        dim = SHAPES["default"]["dim"]
+        times = [(d, device_ms(lambda: DESIGNS[d](pos, pw, RADIUS, dim), 10))
+                 for d in TURNS]
+        print(f"splat at {m} seeded deposits -> 65x65x65 "
+              f"({m / math.prod(dim):.2f} a cell): "
+              + ", ".join(f"{d} {t:.4f} ms" for d, t in times) + f" ({tag})")
+        results[f"between_{m}"] = times
+        del pos, pw
+    torch.cuda.empty_cache()
+    return results
 
 
 def rel_l1(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -156,8 +416,10 @@ def rel_l1(got: torch.Tensor, want: torch.Tensor) -> float:
 def check_small_frame(dev) -> None:
     """The same small frame on the card and on the CPU."""
     small = dict(vol_dim=16, photons=32, max_interactions=2, width=32)
-    gpu_state, gpu_img = run_frame(*build_frame(dev, **small))
-    cpu_state, cpu_img = run_frame(*build_frame(torch.device("cpu"), **small))
+    gpu_state, gpu_img = run_frame(*build_frame(**small))
+    cpu_state, cpu_img = run_frame(*build_frame("cpu", **small))
+    if gpu_img.device != dev or cpu_img.device.type != "cpu":
+        raise AssertionError("a small frame ran on another device than asked")
     lv_err = rel_l1(gpu_state.light_volume, cpu_state.light_volume)
     img_err = rel_l1(gpu_img, cpu_img)
     print(f"small frame, card vs CPU: light volume rel L1 {lv_err:.3e}, "
@@ -198,6 +460,146 @@ def check_beer_lambert(dev) -> None:
             raise AssertionError("tracer fails the Beer-Lambert check")
 
 
+COUNTED = {"splat_product_direct": sp.splat_product_direct,
+           "splat_product_tiled": sp.splat_product_tiled,
+           "bin_deposits": sp.bin_deposits}
+
+
+def time_on_deposits(what: str, photons, dim, reps: int, tag) -> dict:
+    """Both designs in turns on the deposits a trace left, as ``splat_all``
+    hands them to the kernel: device time beside the bound."""
+    pos, pw = splat.product_deposits(photons)
+    m, r = pos.shape[0], photons.radius_rel
+    bound = splat_bound(pos, pw, r, dim)
+    runs = [(d, device_ms(lambda: DESIGNS[d](pos, pw, r, dim), reps))
+            for d in TURNS]
+    res = {"deposits": m, "live": int((pos[:, 0] < 1e30).sum()),
+           "per_cell": m / math.prod(dim),
+           "chosen": sp.choose_design(m, r, dim), "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"],
+           **{d: [t for e, t in runs if e == d] for d in DESIGNS}}
+    res["faster"] = min(DESIGNS, key=lambda d: min(res[d]))
+    print(f"splat on the deposits of {what}: {m} slots ({res['live']} live, "
+          f"{res['per_cell']:.2f} slots a cell) -> {dim}: "
+          + ", ".join(f"{d} {t:.4f} ms" for d, t in runs)
+          + f"; bound {res['bound_ms']:.4f} ms ({res['bound_by']}); chosen "
+          f"{res['chosen']}, faster {res['faster']} ({tag})")
+    return res
+
+
+def between_frames(tag) -> dict:
+    """Traces of the default scene at photon counts between the default
+    and the large frame's: both designs on their deposits."""
+    out = {}
+    for photons in BETWEEN_PHOTONS:
+        scene, config = build_frame(photons=photons)
+        state = step.full_trace_step(scene, step.init_state(scene, config),
+                                     config)
+        out[str(photons)] = time_on_deposits(
+            f"a trace of {photons}^2 photons", state.photons,
+            step.light_volume_shape(config), 10, tag)
+        del scene, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def counted_frame(what: str, dev, tag, reps: int, **frame) -> tuple:
+    """Drive the main path once with every kernel's count set to 0 just
+    before and read just after; the scene is built with no ``device``
+    argument and must lie on the card. Returns (scene, config, state,
+    image, launches by kernel, both designs' times on the frame's own
+    deposits)."""
+    scene, config = build_frame(**frame)
+    if scene.device != dev:
+        raise AssertionError(f"a scene built with no device lies on "
+                             f"{scene.device}, not on {dev}")
+    torch.cuda.synchronize()
+    for fn in COUNTED.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, img = run_frame(scene, config)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: fn.launches for name, fn in COUNTED.items()}
+    slots = state.photons.positions.shape[0] * state.photons.positions.shape[1]
+    dim = step.light_volume_shape(config)
+    design = sp.choose_design(slots, config.tracer.radius_rel, dim)
+    print(f"{what} (first run, includes warm-up): {ms:.1f} ms; {slots} "
+          f"deposit slots -> {dim}, design {design}, launches {launches} "
+          f"({tag})")
+    other = "direct" if design == "tiled" else "tiled"
+    if (launches[f"splat_product_{design}"] != 1
+            or launches[f"splat_product_{other}"] != 0):
+        raise AssertionError(f"{what}: full_trace_step did not launch the "
+                             f"{design} splat kernel, and it alone, exactly "
+                             "once")
+    if launches["bin_deposits"] != (design == "tiled"):
+        raise AssertionError(f"{what}: binning launches do not fit {design}")
+    deposited = int((state.photons.positions[..., 0] < 1e30).sum())
+    lv = state.light_volume
+    print(f"{what}: deposited photons {deposited}, light volume "
+          f"{tuple(lv.shape)} sum {float(lv.sum()):.6g}, image "
+          f"{tuple(img.shape)} alpha max {float(img[..., 3].max()):.4f}")
+    if lv.device != dev or img.device != dev:
+        raise AssertionError(f"{what}: the frame left the card")
+    if deposited <= 0:
+        raise AssertionError(f"{what}: no photon was deposited")
+    if not (bool(torch.isfinite(lv).all()) and bool(torch.isfinite(img).all())):
+        raise AssertionError(f"{what}: non-finite light volume or image")
+    side = config.render.width
+    if img.shape != (side, side, 4) or float(img[..., 3].max()) <= 0.0:
+        raise AssertionError(f"{what}: empty or misshapen image")
+    # The frame's light volume (kernel) against the plain version of the
+    # splat on the frame's own deposits.
+    compare(lv, splat.splat_all(state.photons, dim, method="matmul"),
+            f"{what}: light volume (kernel) vs plain splat")
+    on_own = time_on_deposits(f"the {what}", state.photons, dim, reps, tag)
+    return scene, config, state, img, launches, on_own
+
+
+def kernel_rows(shapes: dict, default_launches: dict,
+                large_launches: dict, on_frames: dict) -> list:
+    """The ``kernels`` line: one row per kernel, its top-level numbers
+    from the shape at which a driven path launched it (the default frame
+    first), every shape's numbers under ``shapes``, and both designs'
+    device times on the driven and traced frames' own deposits under
+    ``on_frame_deposits``."""
+    per_kernel = {"bin_deposits": {
+        shape: {**shapes[shape]["bin"],
+                "max_abs_err": shapes[shape]["bin_max_abs_err"],
+                "bound_by": "bytes", "library_ms": None}
+        for shape in ("default", "large")}}
+    for design in ("direct", "tiled"):
+        per_kernel[f"splat_product_{design}"] = per_shape = {}
+        for shape in ("default", "large"):
+            res = shapes[shape]
+            runs = [t for t in res["runs"] if t["design"] == design]
+            per_shape[shape] = {
+                "deposits": res["m"], "grid": list(res["dim"]),
+                "chosen_here": res["chosen"] == design,
+                "max_abs_err": res["max_abs_err"][design],
+                "ms": min(t["ms"] for t in runs),
+                "ms_runs": [t["ms"] for t in runs],
+                "bare_ms": min(t["bare_ms"] for t in runs),
+                "wrapper_ms": min(t["wrapper_ms"] for t in runs),
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": None}
+    rows = []
+    for name in COUNTED:
+        at = "default" if default_launches[name] else "large"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "cpm_tpu_torch/csrc/splat_product.cu",
+            "replaces": "cpm_tpu/pallas/splat_mxu.py:57",
+            "launches": default_launches[name] or large_launches[name],
+            "launches_default_frame": default_launches[name],
+            "launches_large_frame": large_launches[name],
+            "top_level_shape": at, "held_against_plain": True,
+            **per_kernel[name][at], "shapes": per_kernel[name]})
+    rows[0]["on_frame_deposits"] = on_frames
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -213,40 +615,15 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s")
     print(log.strip())
 
-    kernel = check_kernel(dev, tag)
+    shapes = check_kernels(dev, tag)
 
-    # --- the main path, counted ---
-    scene, config = build_frame(dev)
-    torch.cuda.synchronize()
-    sp.splat_product.launches = 0
-    t0 = time.perf_counter()
-    state, img = run_frame(scene, config)
-    torch.cuda.synchronize()
-    launches = sp.splat_product.launches
-    print(f"main path (first run, includes warm-up): "
-          f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({tag})")
-    if launches < 1:
-        raise AssertionError("the main path did not launch the splat kernel")
-    deposited = int((state.photons.positions[..., 0] < 1e30).sum())
-    lv = state.light_volume
-    print(f"launches {launches}, deposited photons {deposited}, light "
-          f"volume {tuple(lv.shape)} sum {float(lv.sum()):.6g}, image "
-          f"{tuple(img.shape)} alpha max {float(img[..., 3].max()):.4f}")
-    if deposited <= 0:
-        raise AssertionError("no photon was deposited")
-    if not (bool(torch.isfinite(lv).all()) and bool(torch.isfinite(img).all())):
-        raise AssertionError("non-finite light volume or image")
-    if img.shape != (512, 512, 4) or float(img[..., 3].max()) <= 0.0:
-        raise AssertionError("empty or misshapen image")
-
-    # The frame's light volume (kernel) against the plain version of the
-    # splat on the frame's own deposits.
-    ph = state.photons
-    dim = step.light_volume_shape(config)
-    compare(lv, splat.splat_all(ph, dim, method="matmul"),
-            "frame light volume (kernel) vs plain splat")
+    # --- the main path, counted: the default frame, then the large one ---
+    scene, config, state, img, launches, on_default = counted_frame(
+        "default frame", dev, tag, reps=50)
 
     # --- per-stage times (warm), CUDA events ---
+    ph = state.photons
+    dim = step.light_volume_shape(config)
     key = rng.fold_in(state.key, 0)
     samples = state.light_samples
     stages = {
@@ -264,16 +641,37 @@ def main() -> None:
     }
     for name, fn in stages.items():
         print(f"stage {name}: {cuda_ms(fn, reps=3):.3f} ms ({tag})")
+    del scene, state, img, ph, samples, stages
+
+    on_frames = {"default": on_default, **between_frames(tag)}
+
+    # The large frame: a 256^3 cloud, 2048^2 photons x 4 interactions
+    # (16,777,216 deposit slots into the same 65^3 grid), a 1024^2 image.
+    *_, large_launches, on_frames["large"] = counted_frame(
+        "large frame", dev, tag, reps=5, vol_dim=256, photons=2048,
+        width=1024)
+    torch.cuda.empty_cache()
+    # The wrapper's threshold is held to the traced deposits: at every
+    # traced size the design it chose is the faster one there, or within
+    # CHOICE_SLACK of it (near the threshold the two tie).
+    for name, res in on_frames.items():
+        chosen, best = min(res[res["chosen"]]), min(res[res["faster"]])
+        if chosen > (1.0 + CHOICE_SLACK) * best:
+            raise AssertionError(
+                f"on the deposits of the {name} trace the wrapper chooses "
+                f"{res['chosen']} ({chosen:.4f} ms) and {res['faster']} "
+                f"takes {best:.4f} ms")
 
     check_small_frame(dev)
     check_beer_lambert(dev)
 
+    rows = kernel_rows(shapes, launches, large_launches, on_frames)
+    for row in rows:
+        if row["launches"] < 1:
+            raise AssertionError(f"{row['name']} was launched by neither "
+                                 "driven frame")
     print(tag)
-    print(json.dumps({"kernels": [{
-        "name": "splat_product", "route": "cuda",
-        "source": "cpm_tpu_torch/csrc/splat_product.cu",
-        "replaces": "cpm_tpu/pallas/splat_mxu.py:57",
-        "launches": launches, "held_against_plain": True, **kernel}]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

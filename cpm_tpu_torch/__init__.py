@@ -5,10 +5,13 @@ counterpart is easy to find. Plain tensor code is PyTorch; the one
 hand-written kernel (the product-Epanechnikov photon splat) lives in
 ``kernels/`` with its CUDA source in ``csrc/``.
 
-The port imports nothing of JAX. Of ``cpm_tpu`` it imports only four
-numpy-only modules, which it shares with the reference:
-``cpm_tpu.core.constants``, ``cpm_tpu.core.lights``,
-``cpm_tpu.io.synthetic`` and ``cpm_tpu.ops.lightplane``.
+The port imports nothing of JAX and nothing of ``cpm_tpu``: it keeps its
+own copies of the reference's numpy-only host modules (``core/constants``,
+``core/lights``, ``io/synthetic``, ``ops/lightplane``), and the tests hold
+each copy against its original.
+
+Tensors are made on the CUDA card unless the caller names another device
+(``device="cpu"``, as the tests do); see ``core/device.py``.
 """
 
 __version__ = "0.1.0"

@@ -7,6 +7,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from cpm_tpu_torch.core.device import resolve
+
 Tensor = torch.Tensor
 
 
@@ -20,8 +22,11 @@ class Camera:
     @classmethod
     def create(cls, eye=(0.5, 0.5, -1.5), center=(0.5, 0.5, 0.5),
                up=(0.0, 1.0, 0.0), fov_y=45.0, device=None) -> "Camera":
+        dev = resolve(device)
+
         def vec(v):
-            return torch.as_tensor(np.asarray(v, np.float32), device=device)
+            return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
         return cls(eye=vec(eye), center=vec(center), up=vec(up),
                    fov_y=float(np.float32(fov_y)))
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from cpm_tpu.core import constants
+from cpm_tpu_torch.core import constants
 from cpm_tpu_torch.ops import phase as phase_mod
 
 

@@ -16,7 +16,7 @@ class Scene:
     tf: TransferFunction
     tf_scattering: TransferFunction
     camera: Camera
-    # Host-side :class:`cpm_tpu.core.lights.Light` objects (the
+    # Host-side :class:`cpm_tpu_torch.core.lights.Light` objects (the
     # light-plane fit runs on the host).
     lights: Any = ()
 

@@ -14,7 +14,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cpm_tpu.core import constants
+from cpm_tpu_torch.core import constants
+from cpm_tpu_torch.core.device import resolve
 
 Tensor = torch.Tensor
 F32 = torch.float32
@@ -62,7 +63,7 @@ class Volume:
             basis = np.eye(3, dtype=np.float32) * 2.0
         if offset is None:
             offset = np.array([-1.0, -1.0, -1.0], np.float32)
-        data = torch.as_tensor(data, dtype=F32, device=device)
+        data = torch.as_tensor(data, dtype=F32, device=resolve(device))
         return cls(data=data.contiguous(),
                    basis=torch.as_tensor(basis, dtype=F32, device=data.device),
                    offset=torch.as_tensor(offset, dtype=F32,
@@ -97,7 +98,7 @@ class TransferFunction:
     def from_points(cls, positions, colors, lut_size: int = 256,
                     device=None) -> "TransferFunction":
         positions = torch.as_tensor(np.asarray(positions, np.float32),
-                                    device=device)
+                                    device=resolve(device))
         colors = torch.as_tensor(np.asarray(colors, np.float32),
                                  device=positions.device)
         x = (torch.arange(lut_size, dtype=F32, device=positions.device)
@@ -175,7 +176,7 @@ class PhotonData:
                scene_radius: float = constants.DEFAULT_SCENE_RADIUS,
                device=None) -> "PhotonData":
         big = float(constants.FLT_MAX)
-        kw = dict(dtype=F32, device=device)
+        kw = dict(dtype=F32, device=resolve(device))
         return cls(
             positions=torch.full((max_interactions, n, 3), big, **kw),
             powers=torch.zeros((max_interactions, n, 3), **kw),

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from cpm_tpu_torch.core.camera import Camera
+from cpm_tpu_torch.core.device import resolve
 from cpm_tpu_torch.core.scene import Scene
 from cpm_tpu_torch.core.types import (LightSamples, PhotonData,
                                       TransferFunction, Volume)
@@ -32,8 +33,10 @@ def _tensor(a, device) -> torch.Tensor:
 
 def scene_from_numpy(leaves: dict, lights, device=None) -> Scene:
     """The port's Scene from ``volume.*``, ``tf.*``, ``tf_scattering.*`` and
-    ``camera.*`` arrays; ``lights`` are the reference's host-side
-    ``cpm_tpu.core.lights.Light`` objects, which both packages share."""
+    ``camera.*`` arrays, on the card unless ``device`` names another;
+    ``lights`` are host-side ``Light`` objects (the port's or the
+    reference's: emission reads only their fields)."""
+    device = resolve(device)
     def tf(prefix):
         return TransferFunction(
             positions=_tensor(leaves[f"{prefix}.positions"], device),
@@ -53,7 +56,9 @@ def scene_from_numpy(leaves: dict, lights, device=None) -> Scene:
 
 
 def state_from_numpy(leaves: dict, device=None) -> PhotonMapState:
-    """The port's PhotonMapState from the reference state's arrays."""
+    """The port's PhotonMapState from the reference state's arrays, on the
+    card unless ``device`` names another."""
+    device = resolve(device)
     photons = PhotonData(
         **{f: _tensor(leaves[f"photons.{f}"], device) for f in _PHOTON_ARRAYS},
         radius_rel=float(np.float32(leaves["photons.radius_rel"])),

@@ -1,8 +1,7 @@
 """Light-sample emission (``cpm_tpu/ops/emit.py``: ``emit_directional``
 :31-59 and the ``emit`` dispatcher :235-248).
 
-The light-plane fit is host work in numpy, the reference's own
-(``cpm_tpu/ops/lightplane.py``).
+The light-plane fit is host work in numpy (``ops/lightplane.py``).
 Point, cone and area lights are not ported yet.
 """
 
@@ -11,10 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cpm_tpu.core import lights as L
-from cpm_tpu.ops import lightplane
+from cpm_tpu_torch.core import lights as L
 from cpm_tpu_torch.core.types import LightSamples
-from cpm_tpu_torch.ops import intersect
+from cpm_tpu_torch.ops import intersect, lightplane
 
 Tensor = torch.Tensor
 

@@ -10,12 +10,15 @@ from __future__ import annotations
 
 import torch
 
+from cpm_tpu_torch.core.device import resolve
+
 Tensor = torch.Tensor
 
 
 def stratified_grid_2d(nx: int, ny: int, device=None) -> Tensor:
     """(nx*ny, 4) samples (u, v, 0, pdf=1) at the cell centres of an nx x ny
     grid, x fastest."""
+    device = resolve(device)
     ix = torch.arange(nx, dtype=torch.float32, device=device)
     iy = torch.arange(ny, dtype=torch.float32, device=device)
     gy, gx = torch.meshgrid(iy, ix, indexing="ij")

@@ -14,7 +14,7 @@ import math
 import numpy as np
 import torch
 
-from cpm_tpu.core import constants
+from cpm_tpu_torch.core import constants
 from cpm_tpu_torch.core.types import PhotonData, relative_irradiance_scale
 from cpm_tpu_torch.kernels.splat_product import (PRODUCT_KERNEL_MATCH,
                                                  splat_product,
@@ -23,7 +23,8 @@ from cpm_tpu_torch.kernels.splat_product import (PRODUCT_KERNEL_MATCH,
 Tensor = torch.Tensor
 
 __all__ = ["PRODUCT_KERNEL_MATCH", "default_method", "epanechnikov",
-           "light_volume_dim", "splat_all", "splat_product_torch"]
+           "light_volume_dim", "product_deposits", "splat_all",
+           "splat_product_torch"]
 
 
 def epanechnikov(x: Tensor) -> Tensor:
@@ -87,36 +88,47 @@ def _splat_flat(positions: Tensor, powers: Tensor, valid: Tensor,
     return g[:d * h * w * 3].reshape(d, h, w, 3)
 
 
-def _dispatch(method: str, pos: Tensor, pow_: Tensor, valid: Tensor,
-              radius_rel: float, scale: float, out_dim: tuple,
-              footprint: int) -> Tensor:
-    """Route a flat deposit list to a splat backend. The product paths
-    scale powers by PRODUCT_KERNEL_MATCH so both kernels deposit the same
-    expected irradiance."""
-    if method == "auto":
-        method = default_method(pos.device)
-    if method == "scatter":
-        return _splat_flat(pos, pow_, valid, radius_rel, scale, out_dim,
-                           footprint)
-    factor = float(np.float32(scale) * np.float32(PRODUCT_KERNEL_MATCH))
-    pw = pow_ * factor * valid[:, None].to(torch.float32)
-    if method == "matmul":
-        return splat_product_torch(pos, pw, radius_rel, out_dim)
-    if method == "cuda":
-        return splat_product(pos.contiguous(), pw.contiguous(), radius_rel,
-                             out_dim)
-    raise ValueError(f"unknown splat method {method!r}")
-
-
-def splat_all(photons: PhotonData, out_dim: tuple, footprint: int = 4,
-              method: str = "scatter") -> Tensor:
-    """Splat every stored photon into a (D, H, W, 3) RGB irradiance grid
-    scaled by isotropicPhase * relativeIrradianceScale."""
+def _flatten(photons: PhotonData):
+    """(positions (M, 3), powers (M, 3), valid (M,), irradiance scale) of
+    every stored photon, interaction-major."""
     i, n, _ = photons.positions.shape
     pos = photons.positions.reshape(i * n, 3)
     pow_ = photons.powers.reshape(i * n, 3)
     valid = pos[:, 0] < 1e30
     scale = float(np.float32(constants.ISOTROPIC_PHASE) * np.float32(
         relative_irradiance_scale(n, photons.radius_rel)))
-    return _dispatch(method, pos, pow_, valid, photons.radius_rel, scale,
-                     out_dim, footprint)
+    return pos, pow_, valid, scale
+
+
+def _product_powers(pow_: Tensor, valid: Tensor, scale: float) -> Tensor:
+    """Powers as the product kernel takes them: masked, and scaled by
+    PRODUCT_KERNEL_MATCH so both kernels deposit the same expected
+    irradiance."""
+    factor = float(np.float32(scale) * np.float32(PRODUCT_KERNEL_MATCH))
+    return pow_ * factor * valid[:, None].to(torch.float32)
+
+
+def product_deposits(photons: PhotonData) -> tuple[Tensor, Tensor]:
+    """The contiguous (positions, powers) that ``splat_all`` hands
+    ``splat_product`` for these photons."""
+    pos, pow_, valid, scale = _flatten(photons)
+    return pos.contiguous(), _product_powers(pow_, valid, scale).contiguous()
+
+
+def splat_all(photons: PhotonData, out_dim: tuple, footprint: int = 4,
+              method: str = "scatter") -> Tensor:
+    """Splat every stored photon into a (D, H, W, 3) RGB irradiance grid
+    scaled by isotropicPhase * relativeIrradianceScale."""
+    if method == "auto":
+        method = default_method(photons.positions.device)
+    if method == "scatter":
+        pos, pow_, valid, scale = _flatten(photons)
+        return _splat_flat(pos, pow_, valid, photons.radius_rel, scale,
+                           out_dim, footprint)
+    if method == "matmul":
+        return splat_product_torch(*product_deposits(photons),
+                                   photons.radius_rel, out_dim)
+    if method == "cuda":
+        return splat_product(*product_deposits(photons), photons.radius_rel,
+                             out_dim)
+    raise ValueError(f"unknown splat method {method!r}")

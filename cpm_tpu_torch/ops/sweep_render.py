@@ -20,7 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cpm_tpu.core import constants
+from cpm_tpu_torch.core import constants
 from cpm_tpu_torch.core.camera import Camera
 from cpm_tpu_torch.core.config import RenderConfig
 from cpm_tpu_torch.core.types import (TransferFunction, Volume,

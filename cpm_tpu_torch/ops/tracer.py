@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from cpm_tpu.core import constants
+from cpm_tpu_torch.core import constants
 from cpm_tpu_torch.core.config import TracerConfig
 from cpm_tpu_torch.core.types import (LightSamples, PhotonData,
                                       TransferFunction, Volume,

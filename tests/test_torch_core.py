@@ -119,7 +119,7 @@ TF_CASES = {
 def test_transfer_function_matches(case):
     pos, cols = TF_CASES[case]
     jtf = jtypes.TransferFunction.from_points(pos, cols)
-    ttf = ttypes.TransferFunction.from_points(pos, cols)
+    ttf = ttypes.TransferFunction.from_points(pos, cols, device="cpu")
     close(ttf.positions, jtf.positions, 0, 0)
     close(ttf.lut, jtf.lut)
     x = np.random.default_rng(1).uniform(-0.2, 1.2, (64, 33)).astype(
@@ -139,7 +139,8 @@ def test_encode_direction_and_irradiance_scale():
 
 
 def test_photon_data_create_sentinels():
-    ph = ttypes.PhotonData.create(10, 3, radius_rel=0.02)
+    ph = ttypes.PhotonData.create(10, 3, radius_rel=0.02,
+                                   device="cpu")
     assert ph.positions.shape == (3, 10, 3) and ph.n == 10
     assert bool((ph.positions > 1e30).all()) and bool((ph.exit_power > 1e30).all())
     assert ph.radius_rel == float(np.float32(0.02))
@@ -149,7 +150,8 @@ def test_volume_scene_radius():
     data = np.zeros((4, 4, 4), np.float32)
     basis = np.diag([2.0, 1.0, 3.0]).astype(np.float32)
     want = float(jtypes.Volume.from_data(data, basis).scene_radius())
-    assert ttypes.Volume.from_data(data, basis).scene_radius() == \
+    assert ttypes.Volume.from_data(
+        data, basis, device="cpu").scene_radius() == \
         pytest.approx(want, rel=RTOL)
 
 
@@ -159,7 +161,7 @@ def test_volume_scene_radius():
                                  (2.0, 0.4, 0.5), (0.3, 2.2, 0.6)])
 def test_camera_rays_match(eye):
     jo, jd = jcamera.Camera.create(eye=eye).rays(24, 16)
-    to, td = tcamera.Camera.create(eye=eye).rays(24, 16)
+    to, td = tcamera.Camera.create(eye=eye, device="cpu").rays(24, 16)
     close(to, jo)
     close(td, jd)
 
@@ -187,7 +189,7 @@ def test_ray_box_matches():
 
 def test_stratified_grid_matches():
     np.testing.assert_array_equal(
-        tsampling.stratified_grid_2d(7, 5).numpy(),
+        tsampling.stratified_grid_2d(7, 5, device="cpu").numpy(),
         np.asarray(jsampling.stratified_grid_2d(7, 5)))
 
 
@@ -209,7 +211,8 @@ def test_trilinear_matches(shape):
 def test_emit_directional_matches(direction):
     light = jlights.Light.directional(direction, (1.0, 0.8, 0.5))
     want = jemit.emit(light, jsampling.stratified_grid_2d(16, 12))
-    got = temit.emit(light, tsampling.stratified_grid_2d(16, 12))
+    got = temit.emit(light, tsampling.stratified_grid_2d(
+        16, 12, device="cpu"))
     for f in ("origins", "directions", "powers", "tspan"):
         close(getattr(got, f), getattr(want, f))
     assert got.iteration == int(want.iteration)
@@ -221,7 +224,7 @@ def test_emit_directional_matches(direction):
     jlights.Light.area((0.5, 2.0, 0.5), (0, -1, 0))])
 def test_emit_other_lights_not_ported(light):
     with pytest.raises(NotImplementedError):
-        temit.emit(light, tsampling.stratified_grid_2d(4, 4))
+        temit.emit(light, tsampling.stratified_grid_2d(4, 4, device="cpu"))
 
 
 # --- phase ------------------------------------------------------------------

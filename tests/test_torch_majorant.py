@@ -25,13 +25,14 @@ TF_POINTS = {
 
 
 def _volumes(data):
-    return jtypes.Volume.from_data(data), ttypes.Volume.from_data(data)
+    return (jtypes.Volume.from_data(data),
+            ttypes.Volume.from_data(data, device="cpu"))
 
 
 def _tfs(name):
     pos, cols = TF_POINTS[name]
     return (jtypes.TransferFunction.from_points(pos, cols),
-            ttypes.TransferFunction.from_points(pos, cols))
+            ttypes.TransferFunction.from_points(pos, cols, device="cpu"))
 
 
 @pytest.mark.parametrize("dim", [16, 24])
@@ -55,7 +56,8 @@ def test_min_max_cells_start_at_voxel_0(shape, cell):
     0 and the last one is partial (the original volumeMinMaxKernel), held
     against a plain numpy loop. Tolerance: equal."""
     data = np.random.default_rng(5).random(shape).astype(np.float32)
-    got = tminmax.volume_min_max(ttypes.Volume.from_data(data), cell).data
+    got = tminmax.volume_min_max(
+        ttypes.Volume.from_data(data, device="cpu"), cell).data
     g = [-(-s // cell) for s in shape]
     assert tuple(got.shape) == (*g, 2)
     for z in range(g[0]):

@@ -1,8 +1,8 @@
 """The port's forward frame (init_state -> full_trace_step -> render_state)
 against the JAX reference from the same converted state, the port's
 radial splat + sweep against the float64 oracle, the state conversion,
-and a run of the port with JAX made unimportable (CPU, 16^3 volume,
-32^2 photons)."""
+and a run of the port with JAX and the reference package made
+unimportable (CPU, 16^3 volume, 32^2 photons)."""
 
 import os
 import subprocess
@@ -76,7 +76,8 @@ def frame():
     state0 = jstep.init_state(scene, jcfg)
     state1 = jstep.full_trace_step(scene, state0, jcfg)
     image = np.asarray(jstep.render_state(scene, state1, jcfg))
-    tscene = convert.scene_from_numpy(leaves_of(scene), scene.lights)
+    tscene = convert.scene_from_numpy(leaves_of(scene), scene.lights,
+                                      device="cpu")
     return scene, state0, state1, image, tscene, tcfg
 
 
@@ -94,7 +95,8 @@ def test_init_state_matches(frame):
 def test_state_round_trip(frame):
     _, _, state1, _, _, _ = frame
     leaves = leaves_of(state1)
-    back = convert.state_to_numpy(convert.state_from_numpy(leaves))
+    back = convert.state_to_numpy(
+        convert.state_from_numpy(leaves, device="cpu"))
     assert sorted(back) == sorted(leaves)
     for k, v in leaves.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
@@ -104,7 +106,7 @@ def test_full_frame_matches(frame):
     """full_trace_step + render_state from the reference's own initial
     state: light volume and image within 1% relative L1."""
     _, state0, state1, image, tscene, tcfg = frame
-    tstate = convert.state_from_numpy(leaves_of(state0))
+    tstate = convert.state_from_numpy(leaves_of(state0), device="cpu")
     tstate = tstep.full_trace_step(tscene, tstate, tcfg)
     timage = tstep.render_state(tscene, tstate, tcfg).numpy()
     lv, want_lv = tstate.light_volume.numpy(), np.asarray(state1.light_volume)
@@ -123,7 +125,7 @@ def test_radial_splat_and_sweep_match_float64_oracle(frame):
     """The port's own trace -> radial scatter splat -> sweep against a
     float64 numpy photon-map render (tests/test_golden_image.py)."""
     _, state0, _, _, tscene, tcfg = frame
-    tstate = convert.state_from_numpy(leaves_of(state0))
+    tstate = convert.state_from_numpy(leaves_of(state0), device="cpu")
     photons = tstep.full_trace_step(tscene, tstate, tcfg).photons
     lv_dim = (8, 8, 8)
     lv = tsplat.splat_all(photons, lv_dim, footprint=4, method="scatter")
@@ -194,36 +196,44 @@ def test_unported_paths_raise(frame, what):
 
 
 def test_port_needs_no_jax():
-    """With jax, jaxlib and flax made unimportable, the port and chip_smoke
-    import and a 16^3 volume / 16^2 photon / 16^2 pixel frame runs on the
-    CPU, having loaded no module of the reference beyond the four
-    numpy-only ones the port shares with it."""
+    """With jax, jaxlib, flax and the reference package cpm_tpu all made
+    unimportable, the port and chip_smoke import and a 16^3 volume / 16^2
+    photon / 16^2 pixel frame runs on the CPU, asked for by name; no
+    module of any of them is loaded afterwards."""
     script = textwrap.dedent("""
         import sys
-        for name in ("jax", "jaxlib", "flax"):
+        blocked = ("jax", "jaxlib", "flax", "cpm_tpu")
+        for name in blocked:
             sys.modules[name] = None
         import numpy as np
         import torch
         import cpm_tpu_torch
         import chip_smoke
         from cpm_tpu_torch.kernels import splat_product
+
+        def loaded():
+            return [m for m in sys.modules if m.split(".")[0] in blocked
+                    and sys.modules[m] is not None]
+
+        assert not loaded(), loaded()
         scene, config = chip_smoke.build_frame(
-            torch.device("cpu"), vol_dim=16, photons=16, max_interactions=2,
+            "cpu", vol_dim=16, photons=16, max_interactions=2,
             width=16, max_steps=500)
         state, image = chip_smoke.run_frame(scene, config)
+        assert image.device.type == "cpu"
         assert tuple(image.shape) == (16, 16, 4)
         assert bool(torch.isfinite(image).all())
         assert int((state.photons.positions[..., 0] < 1e30).sum()) > 0
-        assert splat_product.splat_product.launches == 0
-        loaded = [m for m in sys.modules
-                  if m.split(".")[0] in ("jax", "jaxlib", "flax")
-                  and sys.modules[m] is not None]
-        assert not loaded, loaded
-        shared = {"cpm_tpu.core.constants", "cpm_tpu.core.lights",
-                  "cpm_tpu.io.synthetic", "cpm_tpu.ops.lightplane"}
-        packages = {"cpm_tpu", "cpm_tpu.core", "cpm_tpu.io", "cpm_tpu.ops"}
-        reference = {m for m in sys.modules if m.split(".")[0] == "cpm_tpu"}
-        assert reference - packages == shared, sorted(reference)
+        assert splat_product.splat_product_direct.launches == 0
+        assert splat_product.splat_product_tiled.launches == 0
+        assert splat_product.bin_deposits.launches == 0
+        assert not loaded(), loaded()
+        for name in blocked:
+            try:
+                __import__(name)
+            except ImportError:
+                continue
+            raise AssertionError(name + " is importable")
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -1,8 +1,8 @@
 """The port's photon splat against the JAX reference: the plain product
 splat against ``splat_product_xla`` and the interpreted Pallas kernel, the
 radial scatter against the float64 oracle, the dispatch and its device
-rule, the wrapper's input checks, and (on a card only) the Hopper kernel
-against its plain version."""
+rule, the wrapper's input checks, and (on a card only) the Hopper kernels
+against their plain version."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -128,9 +128,11 @@ def test_default_method_follows_the_tensors_device():
 def test_wrapper_takes_cpu_tensors_to_the_plain_version():
     pos, pw = _deposits(200, seed=3)
     tpos, tpw = torch.from_numpy(pos), torch.from_numpy(pw)
-    before = sp.splat_product.launches
+    counted = (sp.splat_product_direct, sp.splat_product_tiled,
+               sp.bin_deposits)
+    before = [fn.launches for fn in counted]
     got = sp.splat_product(tpos, tpw, 0.07, (10, 12, 14))
-    assert sp.splat_product.launches == before  # no kernel on the CPU
+    assert [fn.launches for fn in counted] == before  # no kernel on the CPU
     torch.testing.assert_close(
         got, sp.splat_product_torch(tpos, tpw, 0.07, (10, 12, 14)),
         rtol=0, atol=0)
@@ -160,19 +162,27 @@ def test_wrapper_raises_on_inputs_it_does_not_take(bad):
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_the_card(cuda_device):
-    """On the card: kernel vs plain version at the main path's shape.
-    Tolerance: atomics reorder the float32 sums (rtol 1e-4, atol 1e-6 of
-    the largest value)."""
+@pytest.mark.parametrize("design", ["direct", "tiled", "chosen"])
+def test_kernel_matches_plain_on_the_card(cuda_device, design):
+    """On the card: each kernel design, and the one the wrapper chooses, vs
+    the plain version at the main path's shape. Tolerance: atomics reorder
+    the float32 sums (rtol 1e-4, atol 1e-6 of the largest value)."""
     pos, pw = _deposits(262144, seed=0, lo=0.0, hi=1.0)
     tpos = torch.from_numpy(pos).to(cuda_device)
     tpw = torch.from_numpy(pw).to(cuda_device)
     dim = (65, 65, 65)
-    before = sp.splat_product.launches
-    got = sp.splat_product(tpos, tpw, 0.0153866, dim)
+    fn = {"direct": sp.splat_product_direct, "tiled": sp.splat_product_tiled,
+          "chosen": sp.splat_product}[design]
+    # The wrapper that launches counts; the chooser launches nothing itself.
+    if design == "chosen":
+        design = sp.choose_design(tpos.shape[0], 0.0153866, dim)
+    counter = {"direct": sp.splat_product_direct,
+               "tiled": sp.splat_product_tiled}[design]
+    before = counter.launches
+    got = fn(tpos, tpw, 0.0153866, dim)
     ref = sp.splat_product_torch(tpos, tpw, 0.0153866, dim)
     torch.cuda.synchronize()
-    assert sp.splat_product.launches == before + 1
+    assert counter.launches == before + 1
     torch.testing.assert_close(got, ref, rtol=1e-4,
                                atol=1e-6 * float(ref.abs().max()))
 

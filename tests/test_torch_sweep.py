@@ -33,13 +33,14 @@ def scene():
     lv *= 0.4
     return ((jtypes.Volume.from_data(data),
              jtypes.TransferFunction.from_points(*tf), jnp.asarray(lv)),
-            (ttypes.Volume.from_data(data),
-             ttypes.TransferFunction.from_points(*tf), torch.from_numpy(lv)))
+            (ttypes.Volume.from_data(data, device="cpu"),
+             ttypes.TransferFunction.from_points(*tf, device="cpu"),
+             torch.from_numpy(lv)))
 
 
 def _cameras(eye, center=(0.5, 0.5, 0.5)):
     return (jcamera.Camera.create(eye=eye, center=center),
-            tcamera.Camera.create(eye=eye, center=center))
+            tcamera.Camera.create(eye=eye, center=center, device="cpu"))
 
 
 @pytest.mark.parametrize("eye", OUTSIDE_EYES)

@@ -45,9 +45,9 @@ def scene():
     jargs = (jtypes.Volume.from_data(data),
              jtypes.TransferFunction.from_points(*tf),
              jtypes.TransferFunction.from_points(*tfs))
-    targs = (ttypes.Volume.from_data(data),
-             ttypes.TransferFunction.from_points(*tf),
-             ttypes.TransferFunction.from_points(*tfs))
+    targs = (ttypes.Volume.from_data(data, device="cpu"),
+             ttypes.TransferFunction.from_points(*tf, device="cpu"),
+             ttypes.TransferFunction.from_points(*tfs, device="cpu"))
     jls = jemit.emit(jlights.Light.directional((0.0, -1.0, 0.3)),
                      jsampling.stratified_grid_2d(32, 32))
     tls = ttypes.LightSamples(
@@ -97,12 +97,13 @@ def test_trace_matches_reference_lane_by_lane(scene, case):
 
 
 def _homogeneous(opacity, albedo, dim=16):
-    vol = ttypes.Volume.from_data(np.ones((dim, dim, dim), np.float32))
+    vol = ttypes.Volume.from_data(np.ones((dim, dim, dim), np.float32),
+                                 device="cpu")
     tf = ttypes.TransferFunction.from_points(
-        [0.0, 1.0], [(1, 1, 1, opacity), (1, 1, 1, opacity)])
+        [0.0, 1.0], [(1, 1, 1, opacity), (1, 1, 1, opacity)], device="cpu")
     scat_w = opacity * albedo / (1.0 - albedo)
     tfs = ttypes.TransferFunction.from_points(
-        [0.0, 1.0], [(1, 1, 1, scat_w), (1, 1, 1, scat_w)])
+        [0.0, 1.0], [(1, 1, 1, scat_w), (1, 1, 1, scat_w)], device="cpu")
     return vol, tf, tfs
 
 
@@ -110,7 +111,7 @@ def _trace(n=4096, opacity=0.5, albedo=0.9, max_i=1, seed=0):
     vol, tf, tfs = _homogeneous(opacity, albedo)
     side = int(np.sqrt(n))
     ls = emit.emit(jlights.Light.directional([0.0, 0.0, 1.0]),
-                   sampling.stratified_grid_2d(side, side))
+                   sampling.stratified_grid_2d(side, side, device="cpu"))
     ph = tracer.trace_photons(vol, tf, tfs, ls, rng.prng_key(seed),
                               TracerConfig(max_interactions=max_i))
     return ph, ls
@@ -168,7 +169,7 @@ def test_sentinels_fill_slots_in_order_and_are_deterministic():
 def test_unported_options_raise(what):
     vol, tf, tfs = _homogeneous(0.5, 0.9, dim=8)
     ls = emit.emit(jlights.Light.directional([0.0, 0.0, 1.0]),
-                   sampling.stratified_grid_2d(4, 4))
+                   sampling.stratified_grid_2d(4, 4, device="cpu"))
     kw, cfg = {}, TracerConfig()
     if what == "no_single_scattering":
         cfg = TracerConfig(no_single_scattering=True)
