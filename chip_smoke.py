@@ -39,51 +39,89 @@ no result, without them. It imports nothing but the port. In order it:
    frame's own deposits, and on those of traces at photon counts between,
    which is what the wrapper's threshold is held to; times each stage of
    the default frame with CUDA events;
-6. runs a small frame (16^3 volume, 32^2 photons, 32^2 pixels) on the
+6. drives the correlated update at the default frame, after a
+   transfer-function edit (every opacity x 1.5), through ``step()`` with
+   the launch counts set to 0 before and read after:
+   ``build_importance_grid`` -> ``step(DirtyFlags(tf=True))`` ->
+   ``step(DirtyFlags(progressive=True))`` until no flagged photon remains
+   -> ``render_state``; asserts that the drain took ceil(flagged / budget)
+   batches, that every correlated step launched the splat kernel exactly
+   once, and that the image is finite with alpha in (0, 1]. Then: two
+   50% batches over a grid of ones must give the light volume of
+   ``full_trace_step`` (rtol 1e-3, atol 1e-6 of its peak) and a grid of
+   zeros must leave it alone (1e-4); the first batch's signed delta
+   deposits (2 x interactions x budget slots) go through both kernel
+   designs and the plain version, are timed in turns beside their bound,
+   and the design the wrapper chooses there is held to the 10% rule; each
+   stage of a correlated step is timed with CUDA events beside
+   ``full_trace_step``, with the photons retraced and the places where the
+   host waits for the card counted; a small correlated step on the card is
+   held against the same step on the CPU (selection equal, light volume
+   within 1% relative L1);
+7. runs one ``correlated_step_scalable`` at the large frame (budget
+   419,584), counted, and times both designs on its deposits;
+8. runs a small frame (16^3 volume, 32^2 photons, 32^2 pixels) on the
    card and on the CPU, where the tests hold the port against the JAX
    reference, and asserts they agree (relative L1 under 1%);
-7. checks the tracer on the card against Beer-Lambert physics in a
+9. checks the tracer on the card against Beer-Lambert physics in a
    homogeneous volume;
-8. prints a ``kernels`` JSON line and, last, the device JSON line.
+10. prints a ``kernels`` JSON line and, last, the device JSON line.
 
 A failing phase raises; nothing is caught.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from cpm_tpu_torch.core.camera import Camera
-from cpm_tpu_torch.core.config import (PipelineConfig, RenderConfig,
-                                       TracerConfig)
+from cpm_tpu_torch.core.config import (PipelineConfig, RecomputeConfig,
+                                       RenderConfig, TracerConfig)
 from cpm_tpu_torch.core.lights import Light
 from cpm_tpu_torch.core.scene import Scene
-from cpm_tpu_torch.core.types import TransferFunction, Volume
+from cpm_tpu_torch.core.types import TransferFunction, Volume, f32_scalar
 from cpm_tpu_torch.io import synthetic
 from cpm_tpu_torch.kernels import splat_product as sp
-from cpm_tpu_torch.ops import emit, rng, sampling, splat, tracer
+from cpm_tpu_torch.ops import emit, rng, sampling, select, splat, tracer
 from cpm_tpu_torch.pipeline import step
+from cpm_tpu_torch.pipeline.state import DirtyFlags
 
 RTOL = 1e-4  # atomics reorder the fp32 sums: rounding-level differences
 ATOL_REL = 1e-6  # absolute tolerance, relative to max |plain|
 # Card vs CPU on the same small frame: log/exp round differently on the
 # two devices, which can flip a Woodcock decision in a few lanes.
 FRAME_REL_L1 = 1e-2
+# The -1/+1 update leaves fp32 cancellation residue in the light volume.
+# "A drained grid of ones equals a full trace": rtol 1e-3 as the
+# reference's own test, and an absolute tolerance of ATOL_REL * max |ref|
+# (that test's 1e-3 is 2e-7 of the 4.5e3 peak of its 32^3 scene; the
+# default frame's volume peaks near 2.5e5, where one float32 ulp is
+# 1.6e-2). "A grid of zeros changes nothing": 1e-4, as the reference's.
+DRAINED_RTOL = 1e-3
+UNCHANGED_ATOL = 1e-4
+OPACITY_EDIT = 1.5  # the transfer-function edit: every opacity times this
 
 
 def build_frame(device=None, vol_dim=128, photons=256, max_interactions=4,
-                width=512, max_steps=6000):
+                width=512, max_steps=6000, fraction=0.1,
+                quadrature_samples=8):
     """The reference's interactive workload (its bench.py default):
     smoke_cloud(vol_dim, seed=3), default TFs, one directional light at
-    (0, -1, 0.3), the default camera. With no ``device`` the scene is made
-    on the card, as the port's constructors make it."""
+    (0, -1, 0.3), the default camera; a correlated update retraces
+    ``fraction`` of the photons a batch. With no ``device`` the scene is
+    made on the card, as the port's constructors make it."""
     volume = Volume.from_data(synthetic.smoke_cloud(vol_dim, seed=3),
                               device=device)
     tf = TransferFunction.from_points(*synthetic.default_tf_points(),
@@ -97,8 +135,21 @@ def build_frame(device=None, vol_dim=128, photons=256, max_interactions=4,
         photons_x=photons, photons_y=photons,
         tracer=TracerConfig(max_interactions=max_interactions,
                             max_steps=max_steps),
+        recompute=RecomputeConfig(
+            max_photons_fraction=fraction,
+            importance_quadrature_samples=quadrature_samples),
         render=RenderConfig(width=width, height=width))
     return scene, config
+
+
+def edit_tf(scene: Scene) -> Scene:
+    """The scene after a transfer-function edit: every opacity times
+    OPACITY_EDIT, clamped to 1."""
+    colors = scene.tf.colors.cpu().numpy().copy()
+    colors[:, 3] = np.clip(colors[:, 3] * OPACITY_EDIT, 0.0, 1.0)
+    tf = TransferFunction.from_points(scene.tf.positions.cpu().numpy(),
+                                      colors, device=scene.device)
+    return dataclasses.replace(scene, tf=tf)
 
 
 def run_frame(scene, config):
@@ -171,8 +222,6 @@ BETWEEN = (524288, 1048576, 4194304)
 BETWEEN_PHOTONS = (362, 512, 1024, 1448, 1774)
 TURNS = ("direct", "tiled", "tiled", "direct")
 CHOICE_SLACK = 0.10  # the chosen design may be this much slower than the other
-KERNEL_NAMES = ("splat_direct_kernel", "splat_tiled_kernel",
-                "bin_count_kernel", "bin_scan_kernel", "bin_fill_kernel")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOP_PER_S = 67e12  # H100 SXM, published, outside the tensor cores
 
@@ -180,25 +229,73 @@ DESIGNS = {"direct": sp.splat_product_direct,
            "tiled": sp.splat_product_tiled}
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call of ``fn``: the summed device time
-    of the splat's own kernels and of the memsets in a ``torch.profiler``
-    window over ``reps`` calls. 0.0 when the profiler shows no device
-    time."""
+# What one call enqueues, by the name its profiler record starts with or
+# holds (csrc/splat_product.cu: cpm_splat_direct, cpm_bin_deposits,
+# cpm_splat_tiled after a binning).
+_BIN_RECORDS = {"Memset": 1, "bin_count_kernel": 1, "bin_scan_kernel": 1,
+                "bin_fill_kernel": 1}
+RECORDS = {"direct": {"Memset": 1, "splat_direct_kernel": 1},
+           "bin": _BIN_RECORDS,
+           "tiled": {**_BIN_RECORDS, "Memset": 2, "splat_tiled_kernel": 1}}
+# Profiler windows by outcome ("complete", "short", "retaken") and the
+# records the short ones lacked, by name.
+WINDOWS = collections.Counter()
+MISSING = collections.Counter()
+
+
+def device_ms(what: str, fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn``, which enqueues
+    RECORDS[what]: the device time of those kernels and memsets in a
+    ``torch.profiler`` window over ``reps`` calls. A complete window holds
+    reps x RECORDS[what] records, and the result is their sum over
+    ``reps``. From some point of a long run on, the profiler loses the
+    first one or two records of every window (a memset, the kernel after
+    it), and now and then a longer stretch; a name's time in such a short
+    window is the mean of its records that are there, times its known
+    launches per call. A window with no record of some name, or with a
+    kernel's record under half or over twice that kernel's median, is
+    printed and taken again, four times at most. Raises where a window
+    holds more records than were enqueued; 0.0 when four windows in a row
+    show no device time at all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    want = {name: reps * per for name, per in RECORDS[what].items()}
+    for _ in range(4):
         torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        if any(n in e.key for n in KERNEL_NAMES) or e.key.startswith("Memset"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = {name: [] for name in want}
+        for e in prof.events():
             t = getattr(e, "self_device_time_total", None)
-            total_us += e.self_cuda_time_total if t is None else t
-    return total_us / reps / 1e3
+            t = e.self_cuda_time_total if t is None else t
+            for name in seen:
+                if t > 0.0 and (e.name.startswith(name) if name == "Memset"
+                                else name in e.name):
+                    seen[name].append(t)
+        counts = {name: len(us) for name, us in seen.items()}
+        if any(counts[name] > want[name] for name in want):
+            raise AssertionError(f"{what}: the window holds the records "
+                                 f"{counts}, more than the {want} enqueued")
+        odd = {name: [round(t, 1) for t in us] for name, us in seen.items()
+               if us and name != "Memset"
+               and not 0.5 * statistics.median(us) < min(us) <= max(us)
+               < 2.0 * statistics.median(us)}
+        if all(counts.values()) and not odd:
+            WINDOWS["complete" if counts == want else "short"] += 1
+            MISSING.update({name: want[name] - counts[name] for name in want
+                            if counts[name] < want[name]})
+            return sum(statistics.fmean(us) * RECORDS[what][name]
+                       for name, us in seen.items()) / 1e3
+        WINDOWS["retaken"] += 1
+        print(f"profiler window of {reps} x {what} taken again: records "
+              f"{counts} of {want}; odd microseconds {odd}")
+    if any(counts.values()):
+        raise AssertionError(f"{what}: four profiler windows in a row are "
+                             "unusable")
+    return 0.0
 
 
 def bare_launcher(design: str, pos, pw, r: float, dim):
@@ -241,11 +338,13 @@ def bare_launcher(design: str, pos, pw, r: float, dim):
 
 def splat_bound(pos, pw, r: float, dim) -> dict:
     """The least time the card could take for this splat: bytes (every
-    deposit's 24 read once, the grid's 12 a cell written once) over the
-    memory rate against the operations this data needs (6 per weight of a
-    cell inside a support, 9 per nonzero term) over the fp32 rate."""
+    slot's 12 of position and every used slot's 12 of power read once, the
+    grid's 12 a cell written once) over the memory rate against the
+    operations this data needs (6 per weight of a cell inside a support, 9
+    per nonzero term) over the fp32 rate."""
     m = pos.shape[0]
-    byts = 24 * m + 12 * dim[0] * dim[1] * dim[2]
+    live = int((pos[:, 0] < 1e30).sum())
+    byts = 12 * m + 12 * live + 12 * dim[0] * dim[1] * dim[2]
     inv_r = float(sp.inverse_radius(r))
     weights = terms = 0
     for lo in range(0, m, 1 << 20):
@@ -324,7 +423,7 @@ def timed_once(fn):
 
 def time_design(design: str, pos, pw, r, dim, reps: int) -> dict:
     fn = DESIGNS[design]
-    dev = device_ms(lambda: fn(pos, pw, r, dim), reps)
+    dev = device_ms(design, lambda: fn(pos, pw, r, dim), reps)
     bare = cuda_ms(bare_launcher(design, pos, pw, r, dim), max(reps, 200)
                    if pos.shape[0] <= 1 << 20 else reps)
     wrapper = cuda_ms(lambda: fn(pos, pw, r, dim), reps)
@@ -382,7 +481,8 @@ def check_kernels(dev, tag) -> dict:
                       f"{res['plain_ms']:.3f} ms ({tag})")
             res["runs"] = [{"design": d, **t} for d, t in runs]
             res["bin"] = {
-                "ms": device_ms(lambda: sp.bin_deposits(pos, dim), reps),
+                "ms": device_ms("bin", lambda: sp.bin_deposits(pos, dim),
+                                reps),
                 "wrapper_ms": cuda_ms(
                     lambda: sp.bin_deposits(pos, dim), reps),
                 "plain_ms": cuda_ms(
@@ -398,8 +498,8 @@ def check_kernels(dev, tag) -> dict:
     for m in BETWEEN:
         pos, pw = seeded_deposits(m, 3, 0.3, dev)
         dim = SHAPES["default"]["dim"]
-        times = [(d, device_ms(lambda: DESIGNS[d](pos, pw, RADIUS, dim), 10))
-                 for d in TURNS]
+        times = [(d, device_ms(d, lambda: DESIGNS[d](pos, pw, RADIUS, dim),
+                               10)) for d in TURNS]
         print(f"splat at {m} seeded deposits -> 65x65x65 "
               f"({m / math.prod(dim):.2f} a cell): "
               + ", ".join(f"{d} {t:.4f} ms" for d, t in times) + f" ({tag})")
@@ -465,22 +565,65 @@ COUNTED = {"splat_product_direct": sp.splat_product_direct,
            "bin_deposits": sp.bin_deposits}
 
 
+def reset_counts() -> None:
+    torch.cuda.synchronize()
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def expect_launches(what: str, launches: dict, designs: list) -> None:
+    """Raise unless the splat kernels were launched once for each entry of
+    ``designs`` ("direct" or "tiled", with one binning per tiled launch)
+    and no more."""
+    want = {"splat_product_direct": designs.count("direct"),
+            "splat_product_tiled": designs.count("tiled"),
+            "bin_deposits": designs.count("tiled")}
+    if launches != want:
+        raise AssertionError(f"{what}: expected the launches {want}, "
+                             f"counted {launches}")
+
+
 def time_on_deposits(what: str, photons, dim, reps: int, tag) -> dict:
     """Both designs in turns on the deposits a trace left, as ``splat_all``
     hands them to the kernel: device time beside the bound."""
     pos, pw = splat.product_deposits(photons)
-    m, r = pos.shape[0], photons.radius_rel
+    return time_on_list(what, pos, pw, photons.radius_rel, dim, reps, tag)
+
+
+def time_on_list(what: str, pos, pw, r: float, dim, reps: int, tag) -> dict:
+    """Both designs in turns on one deposit list: device time beside the
+    bound, the design the wrapper chooses for it and the faster one. A
+    design whose two turns differ by over 15% (the profiler can lose a
+    window's records) gets a third; its time is the median."""
+    m = pos.shape[0]
     bound = splat_bound(pos, pw, r, dim)
-    runs = [(d, device_ms(lambda: DESIGNS[d](pos, pw, r, dim), reps))
-            for d in TURNS]
+
+    def run(design):
+        t = device_ms(design, lambda: DESIGNS[design](pos, pw, r, dim),
+                      reps)
+        if t == 0.0:
+            raise AssertionError("torch.profiler showed no device time")
+        return t
+
+    runs = [(d, run(d)) for d in TURNS]
+    for d in DESIGNS:
+        a, b = (t for e, t in runs if e == d)
+        if max(a, b) > 1.15 * min(a, b):
+            runs.append((d, run(d)))
     res = {"deposits": m, "live": int((pos[:, 0] < 1e30).sum()),
            "per_cell": m / math.prod(dim),
-           "chosen": sp.choose_design(m, r, dim), "bound_ms": bound["bound_ms"],
-           "bound_by": bound["bound_by"],
+           "chosen": sp.choose_design(m, r, dim),
+           "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
            **{d: [t for e, t in runs if e == d] for d in DESIGNS}}
-    res["faster"] = min(DESIGNS, key=lambda d: min(res[d]))
+    res["median_ms"] = {d: statistics.median(res[d]) for d in DESIGNS}
+    res["faster"] = min(DESIGNS, key=res["median_ms"].get)
     print(f"splat on the deposits of {what}: {m} slots ({res['live']} live, "
-          f"{res['per_cell']:.2f} slots a cell) -> {dim}: "
+          f"{res['per_cell']:.2f} slots and "
+          f"{res['live'] / math.prod(dim):.2f} live a cell) -> {dim}: "
           + ", ".join(f"{d} {t:.4f} ms" for d, t in runs)
           + f"; bound {res['bound_ms']:.4f} ms ({res['bound_by']}); chosen "
           f"{res['chosen']}, faster {res['faster']} ({tag})")
@@ -513,28 +656,19 @@ def counted_frame(what: str, dev, tag, reps: int, **frame) -> tuple:
     if scene.device != dev:
         raise AssertionError(f"a scene built with no device lies on "
                              f"{scene.device}, not on {dev}")
-    torch.cuda.synchronize()
-    for fn in COUNTED.values():
-        fn.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     state, img = run_frame(scene, config)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = {name: fn.launches for name, fn in COUNTED.items()}
+    launches = read_counts()
     slots = state.photons.positions.shape[0] * state.photons.positions.shape[1]
     dim = step.light_volume_shape(config)
     design = sp.choose_design(slots, config.tracer.radius_rel, dim)
     print(f"{what} (first run, includes warm-up): {ms:.1f} ms; {slots} "
           f"deposit slots -> {dim}, design {design}, launches {launches} "
           f"({tag})")
-    other = "direct" if design == "tiled" else "tiled"
-    if (launches[f"splat_product_{design}"] != 1
-            or launches[f"splat_product_{other}"] != 0):
-        raise AssertionError(f"{what}: full_trace_step did not launch the "
-                             f"{design} splat kernel, and it alone, exactly "
-                             "once")
-    if launches["bin_deposits"] != (design == "tiled"):
-        raise AssertionError(f"{what}: binning launches do not fit {design}")
+    expect_launches(f"{what}: full_trace_step", launches, [design])
     deposited = int((state.photons.positions[..., 0] < 1e30).sum())
     lv = state.light_volume
     print(f"{what}: deposited photons {deposited}, light volume "
@@ -555,6 +689,325 @@ def counted_frame(what: str, dev, tag, reps: int, **frame) -> tuple:
             f"{what}: light volume (kernel) vs plain splat")
     on_own = time_on_deposits(f"the {what}", state.photons, dim, reps, tag)
     return scene, config, state, img, launches, on_own
+
+
+# --- the correlated update ------------------------------------------------
+
+
+def drain(scene, config, state, grid) -> tuple:
+    """A fresh transfer-function invalidation, then progressive ticks until
+    no flagged photon remains, all through ``step()``: (the drained state,
+    the state after the first batch, the number of batches)."""
+    state = first = step.step(scene, state, config, DirtyFlags(tf=True), grid)
+    batches = 1
+    while state.n_remaining > 0:
+        state = step.step(scene, state, config, DirtyFlags(progressive=True),
+                          grid)
+        batches += 1
+        if batches > 4096:
+            raise AssertionError("the drain did not converge")
+    return state, first, batches
+
+
+def batch_deposits(before, after, config) -> tuple:
+    """The signed delta list (positions, powers) that the correlated step
+    from ``before`` to ``after`` handed the splat, rebuilt from the two
+    states: while flagged photons remain, ``after.retraced`` marks the
+    batch, and a full batch in ascending order is the step's own order."""
+    budget = step.recompute_budget(config, before.photons.n)
+    indices = torch.nonzero(after.retraced & ~before.retraced)[:, 0]
+    if after.n_remaining <= 0 or indices.shape[0] != budget:
+        raise AssertionError(
+            f"the batch is not a full one: {indices.shape[0]} of {budget} "
+            f"lanes, {after.n_remaining} remaining")
+    old = dataclasses.replace(
+        before.photons, iteration=0,
+        radius_rel=f32_scalar(config.tracer.radius_rel))
+    return splat.delta_deposits(old, after.photons, indices,
+                                torch.ones_like(indices, dtype=torch.bool))
+
+
+def check_on_list(what: str, pos, pw, r: float, dim, reps: int,
+                  tag) -> tuple:
+    """Both designs and the plain version on one deposit list: held
+    together, then timed in turns beside the bound. Returns (the numbers,
+    the plain version's grid)."""
+    ref = sp.splat_product_torch(pos, pw, r, dim)
+    errs = {}
+    for design, fn in DESIGNS.items():
+        got = fn(pos, pw, r, dim)
+        torch.cuda.synchronize()
+        errs[design] = compare(got, ref, f"splat {design} vs plain on {what}")
+    res = time_on_list(what, pos, pw, r, dim, reps, tag)
+    res["max_abs_err"] = errs
+    res["plain_ms"] = cuda_ms(
+        lambda: sp.splat_product_torch(pos, pw, r, dim), reps=3)
+    print(f"plain splat on {what}: {res['plain_ms']:.3f} ms ({tag})")
+    return res, ref
+
+
+def host_waits(fn) -> collections.Counter:
+    """Where ``fn`` makes the host wait for the card (a value read back, or
+    a small constant uploaded, which waits for the stream as well), as
+    torch's sync debug mode reports it: {"file:line": times}. Empty where
+    the mode reports nothing."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+
+
+def correlated_default(scene, config, state, dev, tag) -> dict:
+    """The correlated update at the default frame, from the state a full
+    trace left: the counted drain through ``step()`` after a TF edit, the
+    drained-equals-full and zero-changes-nothing checks, the first batch's
+    delta deposits through both designs and the plain version, and the
+    stage times. Returns the numbers for the ``kernels`` line."""
+    dim = step.light_volume_shape(config)
+    r = f32_scalar(config.tracer.radius_rel)
+    n = state.photons.n
+    budget = step.recompute_budget(config, n)
+    slots = 2 * state.photons.max_interactions * budget
+    design = sp.choose_design(slots, r, dim)
+    edited = edit_tf(scene)
+
+    # 1. The drain, counted.
+    grid = step.build_importance_grid(edited, config)
+    imp = step.recompute_importance(config, grid, state.photons,
+                                    state.light_samples)
+    flagged = int((imp > 0.0).sum())
+    want_batches = -(-flagged // budget)
+    reset_counts()
+    t0 = time.perf_counter()
+    drained, first, batches = drain(edited, config, state, grid)
+    img = step.render_state(edited, drained, config)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    alpha = float(img[..., 3].max())
+    print(f"correlated drain after a TF edit (first run): {flagged} of {n} "
+          f"photons flagged, budget {budget}, {batches} batches + render in "
+          f"{ms:.1f} ms; {slots} signed delta slots a batch -> {dim}, design "
+          f"{design}, launches {launches}; image alpha max {alpha:.4f} "
+          f"({tag})")
+    if not 0 < flagged or batches != want_batches:
+        raise AssertionError(f"the drain took {batches} batches, not "
+                             f"ceil({flagged} / {budget}) = {want_batches}")
+    expect_launches("correlated drain", launches, [design] * batches)
+    if drained.n_remaining != 0 or bool(drained.retraced.any()):
+        raise AssertionError("the drain left flagged photons or its mask")
+    if drained.recompute_phase != state.recompute_phase + batches:
+        raise AssertionError("the recompute phase did not advance per step")
+    if img.device != dev or drained.light_volume.device != dev:
+        raise AssertionError("the correlated update left the card")
+    if not (bool(torch.isfinite(img).all())
+            and bool(torch.isfinite(drained.light_volume).all())
+            and 0.0 < alpha <= 1.0 + 1e-6):
+        raise AssertionError("non-finite light volume or image, or alpha "
+                             "outside (0, 1]")
+    full_edit = step.full_trace_step(edited, state, config)
+    moved = rel_l1(full_edit.light_volume, state.light_volume)
+    left = rel_l1(drained.light_volume, full_edit.light_volume)
+    print(f"the TF edit moves the light volume by rel L1 {moved:.3e}; the "
+          f"drained volume is within {left:.3e} of a full retrace under the "
+          f"edited TF (photons whose importance is 0 keep their paths)")
+
+    # 3. The first batch's delta deposits: kernel (both designs) vs plain.
+    pos, pw = batch_deposits(state, first, config)
+    if pos.shape[0] != slots:
+        raise AssertionError(f"{pos.shape[0]} delta slots, not {slots}")
+    what = f"the {slots} signed delta slots of a default correlated step"
+    on_delta, ref = check_on_list(what, pos, pw, r, dim, 50, tag)
+    compare(first.light_volume, state.light_volume + ref,
+            "first batch: light volume (kernel) vs previous + plain delta")
+    del ref
+
+    # 2. A grid of ones drained in two 50% batches equals a full trace; a
+    # grid of zeros changes nothing. The stale state holds the photons of
+    # another seed's trace and their light volume.
+    half = dataclasses.replace(config, recompute=dataclasses.replace(
+        config.recompute, max_photons_fraction=0.5))
+    half_budget = step.recompute_budget(half, n)
+    ones = dataclasses.replace(grid, data=torch.ones_like(grid.data))
+    zeros = dataclasses.replace(grid, data=torch.zeros_like(grid.data))
+    other = step.full_trace_step(scene, step.init_state(scene, config, seed=1),
+                                 config)
+    if torch.equal(other.photons.positions, state.photons.positions):
+        raise AssertionError("another seed traced the same photons")
+    stale = dataclasses.replace(other, key=state.key)
+    reset_counts()
+    s1 = step.correlated_step(scene, stale, half, ones, half_budget)
+    s2 = step.correlated_step(scene, s1, half, ones, half_budget)
+    expect_launches("two 50% batches", read_counts(), [sp.choose_design(
+        2 * state.photons.max_interactions * half_budget, r, dim)] * 2)
+    if s1.n_remaining != n - half_budget or s2.n_remaining != 0:
+        raise AssertionError("two 50% batches did not drain a grid of ones")
+    same = torch.equal(s2.photons.positions, state.photons.positions)
+    err = float((s2.light_volume - state.light_volume).abs().max())
+    print(f"grid of ones, two 50% batches vs full_trace_step: photons "
+          f"bit-equal {same}, light volume max_abs_err {err:.3e} (max |ref| "
+          f"{float(state.light_volume.abs().max()):.3e}; held to rtol "
+          f"{DRAINED_RTOL}, atol {ATOL_REL} of that)")
+    if not same:
+        raise AssertionError("a drained grid of ones did not retrace the "
+                             "full trace's photons")
+    torch.testing.assert_close(
+        s2.light_volume, state.light_volume, rtol=DRAINED_RTOL,
+        atol=ATOL_REL * float(state.light_volume.abs().max()))
+    unchanged = step.correlated_step(scene, state, config, zeros, budget)
+    err = float((unchanged.light_volume - state.light_volume).abs().max())
+    print(f"grid of zeros: light volume moved by {err:.3e}")
+    if err >= UNCHANGED_ATOL or unchanged.n_remaining != 0:
+        raise AssertionError("a grid of zeros changed the light volume")
+
+    # 6. Stage times of one correlated step after the edit, beside a full
+    # retrace (3 warm repetitions each, CUDA events).
+    old = dataclasses.replace(state.photons, iteration=0, radius_rel=r)
+    indices, valid, _ = select.select_photons_to_recompute(
+        imp, budget, exclude=state.retraced)
+    sub, safe = step.selected_samples(state.light_samples, indices, valid)
+    key = rng.fold_in(state.key, 0)
+
+    def retrace():
+        return tracer.trace_photons(
+            edited.volume, edited.tf, edited.tf_scattering, sub, key,
+            config.tracer, lane_ids=safe)
+
+    new = retrace()
+    merged = tracer.merge_recomputed(old, new, indices, valid)
+    stages = {
+        "build_importance_grid": lambda: step.build_importance_grid(
+            edited, config),
+        "recompute_importance (path importance)":
+            lambda: step.recompute_importance(config, grid, old,
+                                              state.light_samples),
+        "select_photons_to_recompute":
+            lambda: select.select_photons_to_recompute(
+                imp, budget, exclude=state.retraced),
+        f"retrace of {budget} lanes (trace_photons)": retrace,
+        "merge_recomputed": lambda: tracer.merge_recomputed(
+            old, new, indices, valid),
+        "splat_selected_delta (kernel)": lambda: splat.splat_selected_delta(
+            old, merged, indices, valid, dim, method="cuda"),
+        "splat_selected_delta (plain)": lambda: splat.splat_selected_delta(
+            old, merged, indices, valid, dim, method="matmul"),
+        "correlated_step": lambda: step.correlated_step(
+            edited, state, config, grid, budget),
+        "full_trace_step": lambda: step.full_trace_step(
+            edited, state, config),
+    }
+    times = {name: cuda_ms(fn, reps=3) for name, fn in stages.items()}
+    for name, t in times.items():
+        print(f"correlated stage {name}: {t:.3f} ms ({tag})")
+    # The two whole steps once more, in turns: the trace's host-bound time
+    # drifts within a call.
+    turns = [(name, cuda_ms(stages[name], reps=3, warmup=0))
+             for name in ("correlated_step", "full_trace_step",
+                          "full_trace_step", "correlated_step")]
+    print("in turns: " + ", ".join(f"{name} {t:.3f} ms" for name, t in turns)
+          + f" ({tag})")
+    times["in_turns"] = turns
+    waits = host_waits(stages["correlated_step"])
+    in_trace = sum(host_waits(retrace).values())
+    total = sum(waits.values())
+    print(f"correlated_step retraces {int(valid.sum())} of {n} photons and "
+          f"makes the host wait for the card {total} times, {in_trace} of "
+          f"them inside the retrace (0: the sync debug mode reported none); "
+          f"at "
+          + ", ".join(f"{w} x{c}" for w, c in waits.most_common())
+          + f" ({tag})")
+    return {"launches": launches, "batches": batches, "slots": slots,
+            "on_delta": on_delta, "stage_ms": times, "host_waits": total,
+            "host_waits_in_retrace": in_trace}
+
+
+def check_small_correlated(dev) -> None:
+    """The same small correlated step (32^3, 32^2 photons, 2 interactions,
+    a TF edit, one hot grid cell so fewer photons are flagged than a batch
+    holds) on the card and on the CPU: selection equal, light volume within
+    FRAME_REL_L1."""
+    out = {}
+    for device in (None, "cpu"):
+        scene, config = build_frame(device, vol_dim=32, photons=32,
+                                    max_interactions=2, width=32,
+                                    fraction=0.5)
+        state = step.full_trace_step(scene, step.init_state(scene, config),
+                                     config)
+        scene = edit_tf(scene)
+        grid = step.build_importance_grid(scene, config)
+        data = torch.zeros_like(grid.data)
+        data[0, 3, 0] = 1.0
+        grid = dataclasses.replace(grid, data=data)
+        budget = step.recompute_budget(config, state.photons.n)
+        imp = step.recompute_importance(config, grid, state.photons,
+                                        state.light_samples)
+        indices, valid, _ = select.select_photons_to_recompute(imp, budget)
+        after = step.correlated_step(scene, state, config, grid, budget)
+        out[device] = (indices[valid].cpu(), state, after)
+    (sel, _, gpu), (cpu_sel, cpu_before, cpu) = out[None], out["cpu"]
+    if gpu.light_volume.device != dev or cpu.light_volume.device.type != "cpu":
+        raise AssertionError("a small correlated step ran on another device "
+                             "than asked")
+    moved = rel_l1(cpu.light_volume, cpu_before.light_volume)
+    err = rel_l1(gpu.light_volume, cpu.light_volume)
+    print(f"small correlated step, card vs CPU: {sel.shape[0]} photons "
+          f"selected, the step moved the light volume by rel L1 {moved:.3e}, "
+          f"card vs CPU rel L1 {err:.3e}")
+    if not 0 < sel.shape[0] < budget or not torch.equal(sel, cpu_sel):
+        raise AssertionError("the card and the CPU select other photons")
+    if not (moved > 0.0 and err < FRAME_REL_L1):
+        raise AssertionError("the card and the CPU disagree on a small "
+                             "correlated step")
+
+
+def correlated_large(scene, config, state, dev, tag) -> dict:
+    """One ``correlated_step_scalable`` at the large frame after the TF
+    edit, counted (first run only); its deposits (the removed and the added
+    list, and the signed list of both that ``correlated_step`` would
+    splat) through both designs and the plain version."""
+    dim = step.light_volume_shape(config)
+    r = f32_scalar(config.tracer.radius_rel)
+    budget = step.recompute_budget(config, state.photons.n)
+    half = state.photons.max_interactions * budget
+    edited = edit_tf(scene)
+    grid = step.build_importance_grid(edited, config)
+    reset_counts()
+    t0 = time.perf_counter()
+    after = step.correlated_step_scalable(edited, state, config, grid, budget)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    pos, pw = batch_deposits(state, after, config)
+    designs = [sp.choose_design(half, r, dim)] * 2
+    print(f"large correlated_step_scalable (first run): budget {budget} of "
+          f"{state.photons.n} photons, {after.n_remaining} remain, "
+          f"{ms:.1f} ms; two splats of {half} slots -> {dim}, designs "
+          f"{designs}, launches {launches} ({tag})")
+    expect_launches("large correlated_step_scalable", launches, designs)
+    if after.light_volume.device != dev or not bool(
+            torch.isfinite(after.light_volume).all()):
+        raise AssertionError("large correlated step: non-finite light "
+                             "volume, or it left the card")
+    on_signed, ref = check_on_list(
+        f"the {2 * half} signed delta slots of a large correlated step", pos,
+        pw, r, dim, 5, tag)
+    compare(after.light_volume, state.light_volume + ref,
+            "large correlated step: light volume (kernel) vs previous + "
+            "plain delta")
+    del ref
+    on_added, _ = check_on_list(
+        f"the {half} added slots of a large correlated_step_scalable",
+        pos[half:], pw[half:], r, dim, 5, tag)
+    return {"launches": launches, "slots": half, "on_added": on_added,
+            "on_signed": on_signed, "first_run_ms": ms}
 
 
 def kernel_rows(shapes: dict, default_launches: dict,
@@ -600,6 +1053,36 @@ def kernel_rows(shapes: dict, default_launches: dict,
     return rows
 
 
+def delta_row(caller: str, shape: str, launches: dict, steps: int,
+              on_list: dict) -> dict:
+    """A ``kernels`` row for the splat kernel as a correlated update
+    launches it: the design the wrapper chose on that path's own deposit
+    list, with the other design's times beside it. ``launches`` are the
+    counts read after ``steps`` correlated steps."""
+    chosen = on_list["chosen"]
+    launches = launches[f"splat_product_{chosen}"]
+    return {
+        "name": f"splat_product_{chosen}", "route": "cuda",
+        "source": "cpm_tpu_torch/csrc/splat_product.cu",
+        "replaces": "cpm_tpu/pallas/splat_mxu.py:57",
+        "caller": caller, "shape": shape, "launches": launches,
+        "correlated_steps": steps,
+        "launches_per_correlated_step": launches / steps,
+        "held_against_plain": True,
+        "max_abs_err": on_list["max_abs_err"][chosen],
+        "ms": on_list["median_ms"][chosen], "ms_runs": on_list[chosen],
+        "plain_ms": on_list["plain_ms"], "bound_ms": on_list["bound_ms"],
+        "bound_by": on_list["bound_by"],
+        "share_of_bound": on_list["bound_ms"] / on_list["median_ms"][chosen],
+        "library_ms": None,
+        "deposits": on_list["deposits"], "live": on_list["live"],
+        "other_design_ms_runs": {d: on_list[d] for d in DESIGNS
+                                 if d != chosen},
+        "other_design_max_abs_err": {d: e for d, e in
+                                     on_list["max_abs_err"].items()
+                                     if d != chosen}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -641,35 +1124,80 @@ def main() -> None:
     }
     for name, fn in stages.items():
         print(f"stage {name}: {cuda_ms(fn, reps=3):.3f} ms ({tag})")
-    del scene, state, img, ph, samples, stages
+    del img, ph, samples, stages
+
+    # --- the correlated update at the default frame, counted ---
+    correlated = correlated_default(scene, config, state, dev, tag)
+    check_small_correlated(dev)
+    del scene, state
 
     on_frames = {"default": on_default, **between_frames(tag)}
 
     # The large frame: a 256^3 cloud, 2048^2 photons x 4 interactions
     # (16,777,216 deposit slots into the same 65^3 grid), a 1024^2 image.
-    *_, large_launches, on_frames["large"] = counted_frame(
+    (scene, config, state, _, large_launches,
+     on_frames["large"]) = counted_frame(
         "large frame", dev, tag, reps=5, vol_dim=256, photons=2048,
-        width=1024)
+        width=1024, quadrature_samples=4)
     torch.cuda.empty_cache()
-    # The wrapper's threshold is held to the traced deposits: at every
-    # traced size the design it chose is the faster one there, or within
+    # One correlated update of the large frame: 419,584 of its photons.
+    correlated_big = correlated_large(scene, config, state, dev, tag)
+    del scene, state
+    torch.cuda.empty_cache()
+    on_frames["default correlated step's delta"] = correlated["on_delta"]
+    on_frames["large correlated step's added"] = correlated_big["on_added"]
+    # The wrapper's threshold is held to the deposits the driven paths
+    # splat: at every traced size and on every list a correlated step
+    # launched, the design it chose is the faster one there, or within
     # CHOICE_SLACK of it (near the threshold the two tie).
     for name, res in on_frames.items():
-        chosen, best = min(res[res["chosen"]]), min(res[res["faster"]])
+        chosen = res["median_ms"][res["chosen"]]
+        best = res["median_ms"][res["faster"]]
         if chosen > (1.0 + CHOICE_SLACK) * best:
             raise AssertionError(
-                f"on the deposits of the {name} trace the wrapper chooses "
+                f"on the deposits of the {name} the wrapper chooses "
                 f"{res['chosen']} ({chosen:.4f} ms) and {res['faster']} "
                 f"takes {best:.4f} ms")
+
+    # Both lists of the large step as one signed list, which no driven
+    # path splats (correlated_step would, at that frame): reported, not
+    # held.
+    signed = correlated_big["on_signed"]
+    print(f"on the {signed['deposits']} signed slots of both lists together "
+          f"the wrapper would choose {signed['chosen']} "
+          f"({signed['median_ms'][signed['chosen']]:.4f} ms); "
+          f"{signed['faster']} takes "
+          f"{signed['median_ms'][signed['faster']]:.4f} ms ({tag})")
 
     check_small_frame(dev)
     check_beer_lambert(dev)
 
     rows = kernel_rows(shapes, launches, large_launches, on_frames)
     for row in rows:
+        row["caller"] = "full_trace_step"
+    slots = correlated["slots"]
+    rows.append(delta_row(
+        "correlated_step (through step(), default frame)",
+        f"{slots} signed delta slots -> 65x65x65x3",
+        correlated["launches"], correlated["batches"],
+        correlated["on_delta"]))
+    rows[-1]["stage_ms"] = correlated["stage_ms"]
+    rows[-1]["host_waits_per_step"] = correlated["host_waits"]
+    rows[-1]["host_waits_in_retrace"] = correlated["host_waits_in_retrace"]
+    rows.append(delta_row(
+        "correlated_step_scalable (large frame)",
+        f"{correlated_big['slots']} added (and as many removed) slots -> "
+        "65x65x65x3", correlated_big["launches"], 1,
+        correlated_big["on_added"]))
+    rows[-1]["first_run_ms"] = correlated_big["first_run_ms"]
+    rows[-1]["on_signed_list"] = correlated_big["on_signed"]
+    for row in rows:
         if row["launches"] < 1:
-            raise AssertionError(f"{row['name']} was launched by neither "
-                                 "driven frame")
+            raise AssertionError(f"{row['name']} was launched by no driven "
+                                 f"path ({row['caller']})")
+    print(f"profiler windows: {dict(WINDOWS)}; records the short ones "
+          f"lacked: {dict(MISSING)} (a short window's time is each name's "
+          "mean record times its known launches per call)")
     print(tag)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

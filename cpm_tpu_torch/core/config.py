@@ -2,12 +2,17 @@
 ``cpm_tpu/core/config.py`` with the same defaults (a test holds the two
 together).
 
-The port honours the fields the forward frame uses. Options whose code
-has not been ported yet raise ``NotImplementedError`` where they are read
-(``trace_chunk``, ``photon_dtype="float16"``, ``no_single_scattering``,
+The port honours the fields that the forward frame, the progressive
+tick and the correlated update use. Options whose code has not been
+ported yet raise ``NotImplementedError`` where they are read
+(``photon_dtype="float16"``, ``no_single_scattering``,
 ``guided_emission``, ``sample_order="hilbert"``, ``render.method="march"``).
 ``use_compaction`` and ``brick_scale`` shape only the TPU form of the
 trace loop; its results do not depend on them, and the port ignores them.
+``recompute.importance_mode="quadrature_mxu"`` (the default) names a
+one-hot matrix-product form of the gather quadrature that exists to avoid
+TPU gathers and has the same values; the port runs the gather quadrature
+for it (``ops/path_importance.py``).
 """
 
 from __future__ import annotations
@@ -63,8 +68,9 @@ class SplatConfig:
 
 @dataclass(frozen=True)
 class RecomputeConfig:
-    """Correlated selective-recomputation configuration (not yet ported;
-    kept so configurations carry over unchanged)."""
+    """Correlated selective-recomputation configuration.
+    ``importance_mode`` is "dda" (exact traversal), "quadrature" or
+    "quadrature_mxu" (both the K-sample gather quadrature here)."""
 
     max_photons_fraction: float = 0.1
     equal_importance: bool = False

@@ -199,6 +199,16 @@ class UniformGrid3D:
     volume_dim: Tensor  # (3,) float32, voxels of the source volume (x, y, z)
 
 
+def progressive_sphere_radius(radius: float, iteration: int,
+                              alpha: float) -> float:
+    """Knaus-Zwicker progressive radius in float32:
+    r_{i+1} = r_i ((i + a) / (i + 1))^(1/3)."""
+    it = np.float32(iteration)
+    ratio = (it + np.float32(alpha)) / (np.float32(1.0) + it)
+    return float(np.float32(radius)
+                 * np.power(ratio, np.float32(1.0 / 3.0)))
+
+
 def sphere_volume(radius) -> np.float32:
     r = np.float32(radius)
     return r * r * r * np.float32(math.pi * 4.0 / 3.0)
@@ -215,3 +225,12 @@ def encode_direction(d: Tensor) -> Tensor:
     phi = torch.atan2(d[..., 1], d[..., 0])
     theta = torch.acos(torch.clamp(d[..., 2], -1.0, 1.0))
     return torch.stack([theta, phi], dim=-1)
+
+
+def decode_direction(angles: Tensor) -> Tensor:
+    """(theta, phi) -> unit direction, the inverse of
+    :func:`encode_direction`."""
+    theta, phi = angles[..., 0], angles[..., 1]
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct],
+                       dim=-1)

@@ -5,6 +5,11 @@ Backends: "scatter" is the exact radial-Epanechnikov scatter-add
 of the separable product kernel; "cuda" is the product kernel's wrapper,
 which launches the hand-written Hopper kernel for CUDA tensors. "auto"
 picks by the device of the tensors (:func:`default_method`).
+
+:func:`splat_all` splats every stored photon; :func:`splat_selected` and
+:func:`splat_selected_delta` splat the photons of a retrace batch, the
+latter as one signed list (-old, +new), which is one kernel launch per
+correlated step.
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ from cpm_tpu_torch.kernels.splat_product import (PRODUCT_KERNEL_MATCH,
 
 Tensor = torch.Tensor
 
-__all__ = ["PRODUCT_KERNEL_MATCH", "default_method", "epanechnikov",
-           "light_volume_dim", "product_deposits", "splat_all",
-           "splat_product_torch"]
+__all__ = ["PRODUCT_KERNEL_MATCH", "default_method", "delta_deposits",
+           "epanechnikov", "light_volume_dim", "product_deposits",
+           "splat_all", "splat_product_torch", "splat_selected",
+           "splat_selected_delta"]
 
 
 def epanechnikov(x: Tensor) -> Tensor:
@@ -88,47 +94,114 @@ def _splat_flat(positions: Tensor, powers: Tensor, valid: Tensor,
     return g[:d * h * w * 3].reshape(d, h, w, 3)
 
 
+def _irradiance_scale(photons: PhotonData, multiplier: float = 1.0) -> float:
+    """isotropicPhase * relativeIrradianceScale(N, radius) * multiplier, in
+    float32."""
+    return float(np.float32(constants.ISOTROPIC_PHASE) * np.float32(
+        relative_irradiance_scale(photons.n, photons.radius_rel))
+        * np.float32(multiplier))
+
+
 def _flatten(photons: PhotonData):
     """(positions (M, 3), powers (M, 3), valid (M,), irradiance scale) of
     every stored photon, interaction-major."""
     i, n, _ = photons.positions.shape
     pos = photons.positions.reshape(i * n, 3)
     pow_ = photons.powers.reshape(i * n, 3)
-    valid = pos[:, 0] < 1e30
-    scale = float(np.float32(constants.ISOTROPIC_PHASE) * np.float32(
-        relative_irradiance_scale(n, photons.radius_rel)))
-    return pos, pow_, valid, scale
+    return pos, pow_, pos[:, 0] < 1e30, _irradiance_scale(photons)
 
 
-def _product_powers(pow_: Tensor, valid: Tensor, scale: float) -> Tensor:
-    """Powers as the product kernel takes them: masked, and scaled by
-    PRODUCT_KERNEL_MATCH so both kernels deposit the same expected
-    irradiance."""
+def _flatten_selected(photons: PhotonData, indices: Tensor, valid: Tensor):
+    """(positions (I*B, 3), powers (I*B, 3), valid (I*B,)) of the photons
+    whose light-sample ids are ``indices``. A padding lane (``valid`` False)
+    reads photon 0 and is masked out."""
+    i = photons.max_interactions
+    b = indices.shape[0]
+    safe = torch.where(valid, indices, 0)
+    pos = photons.positions[:, safe].reshape(i * b, 3)
+    pow_ = photons.powers[:, safe].reshape(i * b, 3)
+    lane_valid = valid[None, :].expand(i, b).reshape(i * b)
+    return pos, pow_, lane_valid & (pos[:, 0] < 1e30)
+
+
+def _product_list(pos: Tensor, pow_: Tensor, valid: Tensor,
+                  scale: float) -> tuple[Tensor, Tensor]:
+    """A deposit list as the product kernel takes it: contiguous positions,
+    and powers masked and scaled by PRODUCT_KERNEL_MATCH so both kernels
+    deposit the same expected irradiance."""
     factor = float(np.float32(scale) * np.float32(PRODUCT_KERNEL_MATCH))
-    return pow_ * factor * valid[:, None].to(torch.float32)
+    powers = pow_ * factor * valid[:, None].to(torch.float32)
+    return pos.contiguous(), powers.contiguous()
 
 
 def product_deposits(photons: PhotonData) -> tuple[Tensor, Tensor]:
-    """The contiguous (positions, powers) that ``splat_all`` hands
-    ``splat_product`` for these photons."""
-    pos, pow_, valid, scale = _flatten(photons)
-    return pos.contiguous(), _product_powers(pow_, valid, scale).contiguous()
+    """The (positions, powers) that ``splat_all`` hands ``splat_product``
+    for these photons."""
+    return _product_list(*_flatten(photons))
+
+
+def _signed_selected(old: PhotonData, new: PhotonData, indices: Tensor,
+                     valid: Tensor):
+    """The selected photons' old deposits with their powers negated, then
+    their new ones: (positions, powers, valid), 2*I*B of each."""
+    old_pos, old_pow, old_valid = _flatten_selected(old, indices, valid)
+    new_pos, new_pow, new_valid = _flatten_selected(new, indices, valid)
+    return (torch.cat([old_pos, new_pos]), torch.cat([-old_pow, new_pow]),
+            torch.cat([old_valid, new_valid]))
+
+
+def delta_deposits(old: PhotonData, new: PhotonData, indices: Tensor,
+                   valid: Tensor) -> tuple[Tensor, Tensor]:
+    """The (positions, powers), 2*I*B of each, that
+    ``splat_selected_delta`` hands ``splat_product`` for this batch."""
+    return _product_list(*_signed_selected(old, new, indices, valid),
+                         _irradiance_scale(old))
+
+
+def _dispatch(method: str, pos: Tensor, pow_: Tensor, valid: Tensor,
+              radius_rel: float, scale: float, out_dim: tuple,
+              footprint: int) -> Tensor:
+    """Route a flat photon list to a splat backend (see the module doc)."""
+    if method == "auto":
+        method = default_method(pos.device)
+    if method == "scatter":
+        return _splat_flat(pos, pow_, valid, radius_rel, scale, out_dim,
+                           footprint)
+    if method not in ("matmul", "cuda"):
+        raise ValueError(f"unknown splat method {method!r}")
+    fn = splat_product_torch if method == "matmul" else splat_product
+    return fn(*_product_list(pos, pow_, valid, scale), radius_rel, out_dim)
 
 
 def splat_all(photons: PhotonData, out_dim: tuple, footprint: int = 4,
               method: str = "scatter") -> Tensor:
     """Splat every stored photon into a (D, H, W, 3) RGB irradiance grid
     scaled by isotropicPhase * relativeIrradianceScale."""
-    if method == "auto":
-        method = default_method(photons.positions.device)
-    if method == "scatter":
-        pos, pow_, valid, scale = _flatten(photons)
-        return _splat_flat(pos, pow_, valid, photons.radius_rel, scale,
-                           out_dim, footprint)
-    if method == "matmul":
-        return splat_product_torch(*product_deposits(photons),
-                                   photons.radius_rel, out_dim)
-    if method == "cuda":
-        return splat_product(*product_deposits(photons), photons.radius_rel,
-                             out_dim)
-    raise ValueError(f"unknown splat method {method!r}")
+    pos, pow_, valid, scale = _flatten(photons)
+    return _dispatch(method, pos, pow_, valid, photons.radius_rel, scale,
+                     out_dim, footprint)
+
+
+def splat_selected_delta(old: PhotonData, new: PhotonData, indices: Tensor,
+                         valid: Tensor, out_dim: tuple, footprint: int = 4,
+                         method: str = "scatter") -> Tensor:
+    """The incremental -old/+new update in one splat pass: the selected
+    photons' old deposits (weight -1) and new deposits (weight +1) as one
+    signed list. Returns the light-volume delta, to be added to the
+    previous volume. ``valid`` masks budget padding lanes."""
+    pos, pow_, pvalid = _signed_selected(old, new, indices, valid)
+    return _dispatch(method, pos, pow_, pvalid, old.radius_rel,
+                     _irradiance_scale(old), out_dim, footprint)
+
+
+def splat_selected(photons: PhotonData, indices: Tensor, valid: Tensor,
+                   out_dim: tuple, footprint: int = 4,
+                   multiplier: float = 1.0,
+                   method: str = "scatter") -> Tensor:
+    """Splat only the photons whose light-sample ids are in ``indices``,
+    scaled by ``multiplier``: -1 removes a photon's previous contribution,
+    +1 adds the retraced one. ``valid`` masks budget padding lanes."""
+    pos, pow_, pvalid = _flatten_selected(photons, indices, valid)
+    return _dispatch(method, pos, pow_, pvalid, photons.radius_rel,
+                     _irradiance_scale(photons, multiplier), out_dim,
+                     footprint)

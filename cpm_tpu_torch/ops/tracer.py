@@ -1,6 +1,8 @@
 """Wavefront photon tracer: Woodcock (delta) tracking through a
 TF-classified volume with scattering, absorption and per-interaction
-photon deposition (``cpm_tpu/ops/tracer.py:trace_photons``, :253-601).
+photon deposition (``cpm_tpu/ops/tracer.py:trace_photons``, :253-601),
+its chunked form (:604-647) and the merge of a retraced subset back into
+the photon buffer (:650-692).
 
 All lanes advance together, one tentative flight per lane per wavefront
 step, with the reference's per-lane state machine (:348-497) unchanged:
@@ -18,6 +20,8 @@ cell_size]``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -73,22 +77,32 @@ def majorant_grids(volume: Volume, tf: TransferFunction,
 def trace_photons(volume: Volume, tf: TransferFunction,
                   tf_scattering: TransferFunction,
                   light_samples: LightSamples, base_key: tuple,
-                  config: TracerConfig, return_stats: bool = False,
-                  record_events: int = 0) -> PhotonData:
+                  config: TracerConfig, lane_ids: Tensor | None = None,
+                  return_stats: bool = False, record_events: int = 0,
+                  grids: tuple | None = None) -> PhotonData:
     """Trace all light samples; returns a fresh PhotonData (radius fields
     default-initialized, the pipeline owns the progressive state).
 
-    ``base_key`` is the (k0, k1) key; lane i draws the random stream of
-    photon id i.
+    ``base_key`` is the (k0, k1) key. ``lane_ids`` (int64, (N,)) are the
+    global photon ids whose random streams the lanes draw, ``arange(N)``
+    by default: a retrace of a selected subset passes the original ids, so
+    every photon keeps its stream. ``grids`` takes the result of
+    :func:`majorant_grids` where one build serves several calls.
     """
     _check_supported(config, return_stats, record_events)
     dev = volume.device
     n = light_samples.n
     max_i = config.max_interactions
-    lane_ids = torch.arange(n, dtype=torch.int64, device=dev)
+    if lane_ids is None:
+        lane_ids = torch.arange(n, dtype=torch.int64, device=dev)
+    elif lane_ids.shape != (n,):
+        raise ValueError(f"lane_ids must be ({n},), got "
+                         f"{tuple(lane_ids.shape)}")
     k0, k1 = int(base_key[0]), int(base_key[1])
 
-    maj, dist, maj_global, cell_min_ext = majorant_grids(volume, tf, config)
+    if grids is None:
+        grids = majorant_grids(volume, tf, config)
+    maj, dist, maj_global, cell_min_ext = grids
     gz, gy, gx = maj.shape
     g_hi = torch.tensor([gx - 1, gy - 1, gz - 1], device=dev)
     maj_flat, dist_flat = maj.reshape(-1), dist.reshape(-1)
@@ -222,3 +236,66 @@ def trace_photons(volume: Volume, tf: TransferFunction,
         scene_radius=f32_scalar(constants.DEFAULT_SCENE_RADIUS),
         iteration=0,
     )
+
+
+def trace_photons_chunked(volume: Volume, tf: TransferFunction,
+                          tf_scattering: TransferFunction,
+                          light_samples: LightSamples, base_key: tuple,
+                          config: TracerConfig, chunk: int,
+                          lane_ids: Tensor | None = None) -> PhotonData:
+    """Trace in sequential chunks of at most ``chunk`` lanes, which bounds
+    the wavefront's temporaries; a last partial chunk is traced as a
+    smaller one. Bit-identical to the trace in one piece: the random
+    streams are keyed by global lane id, not by buffer position, and a lane
+    that has ended no longer changes."""
+    n = light_samples.n
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    if chunk >= n:
+        return trace_photons(volume, tf, tf_scattering, light_samples,
+                             base_key, config, lane_ids=lane_ids)
+    grids = majorant_grids(volume, tf, config)
+    outs = []
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        sub = LightSamples(
+            origins=light_samples.origins[lo:hi],
+            directions=light_samples.directions[lo:hi],
+            powers=light_samples.powers[lo:hi],
+            tspan=light_samples.tspan[lo:hi],
+            iteration=light_samples.iteration)
+        ids = (lane_ids[lo:hi] if lane_ids is not None else
+               torch.arange(lo, hi, dtype=torch.int64, device=volume.device))
+        outs.append(trace_photons(volume, tf, tf_scattering, sub, base_key,
+                                  config, lane_ids=ids, grids=grids))
+    return dataclasses.replace(
+        outs[0],
+        positions=torch.cat([o.positions for o in outs], dim=1),
+        powers=torch.cat([o.powers for o in outs], dim=1),
+        directions=torch.cat([o.directions for o in outs], dim=1),
+        exit_power=torch.cat([o.exit_power for o in outs]),
+        exit_direction=torch.cat([o.exit_direction for o in outs]))
+
+
+def merge_recomputed(photons: PhotonData, new: PhotonData, indices: Tensor,
+                     valid: Tensor) -> PhotonData:
+    """Copy the retraced subset back into the full photon buffer: ``new``
+    holds B retraced photons whose global ids are ``indices``; lanes with
+    ``valid == False`` (budget padding) write nothing. Returns a new
+    PhotonData; ``photons`` is left as it was."""
+    # The one place whose shape depends on the data: the valid lanes'
+    # numbers (one read of their count by the host on a CUDA device).
+    lanes = torch.nonzero(valid)[:, 0]
+    idx = indices.to(torch.int64)[lanes]
+
+    def put(old: Tensor, fresh: Tensor, dim: int) -> Tensor:
+        fresh = fresh.index_select(dim, lanes).to(old.dtype)
+        return old.clone().index_copy_(dim, idx, fresh)
+
+    return dataclasses.replace(
+        photons,
+        positions=put(photons.positions, new.positions, 1),
+        powers=put(photons.powers, new.powers, 1),
+        directions=put(photons.directions, new.directions, 1),
+        exit_power=put(photons.exit_power, new.exit_power, 0),
+        exit_direction=put(photons.exit_direction, new.exit_direction, 0))

@@ -1,24 +1,40 @@
-"""Pipeline orchestration: the forward frame
-(``cpm_tpu/pipeline/step.py``: ``emit_all`` :52-93, ``init_state``
-:132-155, ``full_trace_step`` :169-199, ``render_state`` :611-625).
+"""Pipeline orchestration (``cpm_tpu/pipeline/step.py``): each path is a
+function over (Scene, PhotonMapState), and :func:`step` dispatches on
+:class:`~cpm_tpu_torch.pipeline.state.DirtyFlags`.
 
-Entry points, in the order a user calls them: :func:`init_state` ->
-:func:`full_trace_step` -> :func:`render_state`. Everything runs on the
-device of the scene's tensors.
+- :func:`init_state`, :func:`full_trace_step`, :func:`render_state`: the
+  forward frame (trace all photons, full splat, sweep render).
+- :func:`correlated_step`: importance-ranked selective retrace and the
+  incremental -1/+1 resplat; :func:`correlated_step_scalable` is the same
+  update with two splats (removed, added) in place of the signed one.
+- :func:`progressive_step`: one refinement tick (next iteration, smaller
+  radius, a fresh photon wave folded into the running average).
+- :func:`build_importance_grid`, :func:`build_tf_change_importance_grid`:
+  the importance grids the correlated update ranks photons by.
+
+Everything runs on the device of the scene's tensors. ``n_remaining``,
+``recompute_phase`` and the progressive iteration are Python ints in the
+state, so a correlated step reads its counts back from the device once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+import torch.nn.functional as F
 
 from cpm_tpu_torch.core.config import PipelineConfig
 from cpm_tpu_torch.core.scene import Scene
-from cpm_tpu_torch.core.types import LightSamples, PhotonData, f32_scalar
+from cpm_tpu_torch.core.types import (LightSamples, PhotonData,
+                                      UniformGrid3D, f32_scalar,
+                                      progressive_sphere_radius)
 from cpm_tpu_torch.ops import emit as emit_mod
-from cpm_tpu_torch.ops import rng, sampling, splat, sweep_render, tracer
-from cpm_tpu_torch.pipeline.state import PhotonMapState
+from cpm_tpu_torch.ops import importance as importance_mod
+from cpm_tpu_torch.ops import (minmax, path_importance, rng, sampling, select,
+                               splat, sweep_render, tracer)
+from cpm_tpu_torch.pipeline.state import DirtyFlags, PhotonMapState
 
 Tensor = torch.Tensor
 
@@ -94,17 +110,29 @@ def init_state(scene: Scene, config: PipelineConfig,
         n_remaining=0, recompute_phase=0)
 
 
+def _trace(scene: Scene, samples: LightSamples, key: tuple,
+           config: PipelineConfig,
+           lane_ids: Tensor | None = None) -> PhotonData:
+    """Trace a bundle, in chunks of ``config.tracer.trace_chunk`` lanes
+    where that is set and the bundle is larger; the chunked trace is
+    bit-identical to the trace in one piece."""
+    chunk = config.tracer.trace_chunk
+    if chunk and samples.n > chunk:
+        return tracer.trace_photons_chunked(
+            scene.volume, scene.tf, scene.tf_scattering, samples, key,
+            config.tracer, chunk, lane_ids=lane_ids)
+    return tracer.trace_photons(
+        scene.volume, scene.tf, scene.tf_scattering, samples, key,
+        config.tracer, lane_ids=lane_ids)
+
+
 def full_trace_step(scene: Scene, state: PhotonMapState,
                     config: PipelineConfig) -> PhotonMapState:
     """Trace every light sample and rebuild the light volume, restarting
     the progressive iteration at 0."""
-    if config.tracer.trace_chunk:
-        raise NotImplementedError("trace_chunk is not ported yet")
     iteration = 0
     key = rng.fold_in(state.key, iteration)
-    photons = tracer.trace_photons(
-        scene.volume, scene.tf, scene.tf_scattering, state.light_samples,
-        key, config.tracer)
+    photons = _trace(scene, state.light_samples, key, config)
     photons = dataclasses.replace(
         photons, iteration=iteration,
         radius_rel=f32_scalar(config.tracer.radius_rel),
@@ -119,6 +147,249 @@ def full_trace_step(scene: Scene, state: PhotonMapState,
         n_remaining=0)
 
 
+def progressive_step(scene: Scene, state: PhotonMapState,
+                     config: PipelineConfig) -> PhotonMapState:
+    """One progressive-refinement tick: advance the iteration, shrink the
+    radius by the Knaus-Zwicker schedule, trace a fresh photon wave with new
+    random streams and fold its light volume into the running average."""
+    iteration = state.photons.iteration + 1
+    radius = progressive_sphere_radius(state.photons.radius_rel, iteration,
+                                       config.tracer.alpha)
+    key = rng.fold_in(state.key, iteration)
+    photons = _trace(scene, state.light_samples, key, config)
+    photons = dataclasses.replace(
+        photons, iteration=iteration, radius_rel=radius,
+        scene_radius=scene.volume.scene_radius())
+    lv = splat.splat_all(photons, light_volume_shape(config),
+                         splat_footprint(config),
+                         method=splat_method(config, scene.device))
+    # Divisor as a device tensor: a CUDA tensor divided by a host number
+    # is multiplied by its rounded reciprocal instead.
+    it = torch.tensor(float(iteration), dtype=torch.float32,
+                      device=scene.device)
+    accum = (state.light_volume_accum * it + lv) / (it + 1.0)
+    return dataclasses.replace(state, photons=photons, light_volume=lv,
+                               light_volume_accum=accum)
+
+
+# --- correlated selective recomputation -----------------------------------
+
+def recompute_importance(config: PipelineConfig,
+                         importance_grid: UniformGrid3D,
+                         photons: PhotonData,
+                         light_samples: LightSamples) -> Tensor:
+    """The per-photon importance the correlated step ranks by.
+
+    The grid is first dilated by the tracer's majorant ring: with macrocell
+    majorants a trajectory depends on data up to ``block_ring`` cells
+    beside its path, so a change one cell away from a path must flag it
+    too. Trajectories also depend on the capped empty-space distance map
+    up to ``empty_jump_cap + 1`` cells away, so that dilation is an
+    approximation; ``config.recompute.exact_coverage`` dilates by the full
+    influence radius instead, at the cost of a much fatter flagged set.
+    """
+    r = config.tracer.block_ring
+    if config.recompute.exact_coverage:
+        r += config.tracer.empty_jump_cap + 1
+    # A (2r+1)^3 running maximum; the pool pads with -inf.
+    dilated = F.max_pool3d(importance_grid.data[None, None], 2 * r + 1,
+                           stride=1, padding=r)[0, 0]
+    grid = dataclasses.replace(importance_grid, data=dilated)
+    return path_importance.photon_path_importance(
+        grid, photons, light_samples,
+        max_steps=config.recompute.importance_steps,
+        mode=config.recompute.importance_mode,
+        n_samples=config.recompute.importance_quadrature_samples)
+
+
+def recompute_budget(config: PipelineConfig, n_photons: int) -> int:
+    """Retrace batch size: ``max_photons_fraction`` of the photon count,
+    rounded up to a multiple of 256."""
+    b = int(math.ceil(config.recompute.max_photons_fraction * n_photons))
+    return max(256, -(-b // 256) * 256)
+
+
+def selected_samples(samples: LightSamples, indices: Tensor,
+                     valid: Tensor) -> tuple[LightSamples, Tensor]:
+    """The sub-bundle of a retrace batch and its lanes' photon ids: a
+    padding lane (``valid`` False) reads light sample 0 and gets the span
+    (0, -1), so it never starts."""
+    safe = torch.where(valid, indices, 0)
+    never = torch.tensor([0.0, -1.0], dtype=torch.float32,
+                         device=indices.device)
+    sub = LightSamples(
+        origins=samples.origins[safe], directions=samples.directions[safe],
+        powers=samples.powers[safe],
+        tspan=torch.where(valid[:, None], samples.tspan[safe], never),
+        iteration=samples.iteration)
+    return sub, safe
+
+
+def _select_and_retrace(scene: Scene, state: PhotonMapState,
+                        config: PipelineConfig,
+                        importance_grid: UniformGrid3D, budget: int):
+    """The first half of a correlated update: path importance -> top-budget
+    selection (without the photons already retraced this round) -> retrace
+    of the selected light samples under their own random streams -> merge.
+    Returns (photons before, photons after, indices, valid, n_remaining ()
+    tensor)."""
+    # The progressive iteration restarts on any TF/volume change; during a
+    # drain it is already 0.
+    iteration = 0
+    photons = dataclasses.replace(
+        state.photons, iteration=iteration,
+        radius_rel=f32_scalar(config.tracer.radius_rel))
+    if config.recompute.equal_importance:
+        # The round-robin phase advances once per call, so coverage rotates
+        # across the photon buffer whatever the progressive iteration is.
+        imp = path_importance.equal_importance(
+            photons.n, state.recompute_phase,
+            config.recompute.equal_importance_percentage,
+            device=scene.device)
+    else:
+        imp = recompute_importance(config, importance_grid, photons,
+                                   state.light_samples)
+    indices, valid, n_remaining = select.select_photons_to_recompute(
+        imp, budget, exclude=state.retraced)
+
+    sub, safe = selected_samples(state.light_samples, indices, valid)
+    new = _trace(scene, sub, rng.fold_in(state.key, iteration), config,
+                 lane_ids=safe)
+    new = dataclasses.replace(
+        new, radius_rel=photons.radius_rel,
+        scene_radius=photons.scene_radius, iteration=iteration)
+    merged = tracer.merge_recomputed(photons, new, indices, valid)
+    return photons, merged, indices, valid, n_remaining
+
+
+def _after_batch(state: PhotonMapState, merged: PhotonData, lv: Tensor,
+                 indices: Tensor, valid: Tensor,
+                 n_remaining: int) -> PhotonMapState:
+    """The state after a retrace batch: the batch joins the retraced mask
+    while flagged photons remain, and the mask clears with the last one."""
+    n = merged.n
+    if n_remaining > 0:
+        hit = torch.zeros(n + 1, dtype=torch.bool, device=valid.device)
+        hit[torch.where(valid, indices, n)] = True
+        retraced = state.retraced | hit[:n]
+    else:
+        retraced = torch.zeros_like(state.retraced)
+    return dataclasses.replace(
+        state, photons=merged, light_volume=lv, light_volume_accum=lv,
+        retraced=retraced, n_remaining=n_remaining,
+        recompute_phase=state.recompute_phase + 1)
+
+
+def correlated_step(scene: Scene, state: PhotonMapState,
+                    config: PipelineConfig, importance_grid: UniformGrid3D,
+                    budget: int) -> PhotonMapState:
+    """Selective recomputation: integrate importance along the stored
+    photon paths, retrace only the top-``budget`` photons and update the
+    light volume incrementally with the -1/+1 splat (one splat of the
+    signed list), unless the changed share reaches
+    ``config.splat.incremental_threshold``, where a full resplat replaces
+    it.
+
+    Drain semantics: photons in ``state.retraced`` are excluded from the
+    selection, so a multi-step drain retraces every flagged photon exactly
+    once. The step resets the progressive state (iteration 0, the
+    configuration's radius, accumulator = corrected volume); :func:`step`
+    clears the drain bookkeeping on a fresh invalidation.
+    """
+    photons, merged, indices, valid, n_remaining = _select_and_retrace(
+        scene, state, config, importance_grid, budget)
+    dim = light_volume_shape(config)
+    fp = splat_footprint(config)
+    method = splat_method(config, scene.device)
+    threshold = int(config.splat.incremental_threshold * photons.n)
+    # n_changed <= budget, so a budget under the threshold rules the full
+    # resplat out without asking the device for n_changed.
+    if budget < threshold:
+        n_remaining, full = int(n_remaining), False
+    else:
+        n_remaining, n_changed = torch.stack(
+            [n_remaining, valid.sum()]).tolist()
+        full = n_changed >= threshold
+    if full:
+        lv = splat.splat_all(merged, dim, fp, method=method)
+    else:
+        lv = state.light_volume + splat.splat_selected_delta(
+            photons, merged, indices, valid, dim, fp, method=method)
+    return _after_batch(state, merged, lv, indices, valid, n_remaining)
+
+
+def correlated_step_scalable(scene: Scene, state: PhotonMapState,
+                             config: PipelineConfig,
+                             importance_grid: UniformGrid3D,
+                             budget: int) -> PhotonMapState:
+    """The correlated update for multi-million-photon maps: the semantics
+    of :func:`correlated_step` without the full-resplat threshold, and with
+    the removed and the added deposits as two splats of the product kernel,
+    each half the signed list's length."""
+    photons, merged, indices, valid, n_remaining = _select_and_retrace(
+        scene, state, config, importance_grid, budget)
+    dim = light_volume_shape(config)
+    fp = splat_footprint(config)
+    method = splat.default_method(scene.device)
+    removed = splat.splat_selected(photons, indices, valid, dim, fp,
+                                   method=method)
+    added = splat.splat_selected(merged, indices, valid, dim, fp,
+                                 method=method)
+    lv = state.light_volume - removed + added
+    return _after_batch(state, merged, lv, indices, valid, int(n_remaining))
+
+
+# --- importance-grid construction -----------------------------------------
+
+def build_importance_grid(scene: Scene, config: PipelineConfig,
+                          weights: importance_mod.ImportanceWeights | None
+                          = None,
+                          prev_minmax: Tensor | None = None,
+                          volume_diff: Tensor | None = None,
+                          screen_space_weight: float = 0.0) -> UniformGrid3D:
+    """min/max grid -> TF-classified importance grid. With ``prev_minmax``
+    and ``volume_diff`` from the previous time step it is the time-varying
+    importance instead. The camera-visibility term
+    (``screen_space_weight`` > 0) is not ported yet."""
+    if screen_space_weight > 0.0:
+        raise NotImplementedError("screen_space_weight is not ported yet")
+    if weights is None:
+        weights = importance_mod.ImportanceWeights()
+    w = weights.normalized()
+    mm = minmax.volume_min_max(scene.volume, config.recompute.grid_cell_size)
+    if volume_diff is not None and prev_minmax is not None:
+        imp = importance_mod.classify_time_varying_importance(
+            mm.data, prev_minmax, volume_diff, scene.tf.positions,
+            scene.tf.colors, w)
+    else:
+        imp = importance_mod.classify_importance(
+            mm.data, scene.tf.positions, scene.tf.colors, w)
+    return dataclasses.replace(mm, data=imp)
+
+
+def build_tf_change_importance_grid(scene: Scene, config: PipelineConfig,
+                                    prev_tf_positions,
+                                    prev_tf_colors) -> UniformGrid3D:
+    """Incremental TF-difference importance: only regions whose appearance
+    changed under the TF edit get importance. The merge-walk of the two
+    point lists runs on the host, the classification on the device."""
+    mm = minmax.volume_min_max(scene.volume, config.recompute.grid_cell_size)
+
+    def host(t):
+        return t.detach().cpu().numpy() if torch.is_tensor(t) else t
+
+    dpos, dcol = importance_mod.tf_difference_points(
+        host(prev_tf_positions), host(prev_tf_colors),
+        host(scene.tf.positions), host(scene.tf.colors))
+    imp = importance_mod.classify_importance(
+        mm.data, torch.from_numpy(dpos).to(scene.device),
+        torch.from_numpy(dcol).to(scene.device), weights=None,
+        incremental=True)
+    return dataclasses.replace(mm, data=imp)
+
+
+# --- rendering and top-level dispatch -------------------------------------
+
 def render_state(scene: Scene, state: PhotonMapState,
                  config: PipelineConfig) -> Tensor:
     """Composite the progressive light volume into an (H, W, 4) image with
@@ -129,3 +400,34 @@ def render_state(scene: Scene, state: PhotonMapState,
     return sweep_render.sweep_render(
         scene.volume, scene.tf, state.light_volume_accum, scene.camera,
         config.render)
+
+
+def step(scene: Scene, state: PhotonMapState, config: PipelineConfig,
+         flags: DirtyFlags,
+         importance_grid: UniformGrid3D | None = None) -> PhotonMapState:
+    """Dispatch one pipeline step on the dirty flags.
+
+    - light/camera dirty, or TF/volume dirty with no importance grid: full
+      retrace.
+    - TF/volume dirty with an importance grid: correlated update, a fresh
+      drain round.
+    - progressive only: drain the flagged photons that remain, else a
+      refinement tick.
+    """
+    tf_or_volume = flags.tf or flags.volume
+    if flags.light or flags.camera or (importance_grid is None
+                                       and tf_or_volume):
+        return full_trace_step(scene, state, config)
+    if tf_or_volume:
+        # A fresh invalidation restarts the drain round: selection against
+        # the new importance grid starts from the top priorities.
+        state = dataclasses.replace(
+            state, retraced=torch.zeros_like(state.retraced), n_remaining=0)
+        return correlated_step(scene, state, config, importance_grid,
+                               recompute_budget(config, state.photons.n))
+    if flags.progressive:
+        if importance_grid is not None and state.n_remaining > 0:
+            return correlated_step(scene, state, config, importance_grid,
+                                   recompute_budget(config, state.photons.n))
+        return progressive_step(scene, state, config)
+    return state

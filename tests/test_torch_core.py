@@ -138,6 +138,43 @@ def test_encode_direction_and_irradiance_scale():
             want, rel=RTOL)
 
 
+def test_decode_direction_matches_and_inverts():
+    # Away from the poles, where acos loses digits on the way back.
+    ang = np.random.default_rng(3).uniform(
+        (0.2, -3.0), (np.pi - 0.2, 3.0), (500, 2)).astype(np.float32)
+    got = ttypes.decode_direction(t(ang))
+    close(got, jtypes.decode_direction(jnp.asarray(ang)))
+    np.testing.assert_allclose(ttypes.encode_direction(got).numpy(), ang,
+                               rtol=0.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("alpha", [0.3, 0.95])
+def test_progressive_sphere_radius_matches(alpha):
+    r = float(np.float32(0.0153866))
+    for it in (1, 2, 7, 100):
+        want = float(jtypes.progressive_sphere_radius(
+            jnp.float32(r), jnp.int32(it), alpha))
+        got = ttypes.progressive_sphere_radius(r, it, alpha)
+        assert got == pytest.approx(want, rel=RTOL)
+        assert got == float(np.float32(got)) and got < r
+        r = got
+
+
+def test_dirty_flags_match():
+    from cpm_tpu.pipeline import state as jstate
+    from cpm_tpu_torch.pipeline import state as tstate
+    assert ([f.name for f in dataclasses.fields(tstate.DirtyFlags)]
+            == [f.name for f in dataclasses.fields(jstate.DirtyFlags)])
+    assert (dataclasses.asdict(tstate.ALL_DIRTY)
+            == dataclasses.asdict(jstate.ALL_DIRTY))
+    for kw in ({}, dict(progressive=True), dict(tf=True, progressive=True),
+               dict(light=True), dict(volume=True), dict(camera=True)):
+        a, b = tstate.DirtyFlags(**kw), jstate.DirtyFlags(**kw)
+        assert (a.resets_iteration, a.any) == (b.resets_iteration, b.any)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        tstate.DirtyFlags().tf = True
+
+
 def test_photon_data_create_sentinels():
     ph = ttypes.PhotonData.create(10, 3, radius_rel=0.02,
                                    device="cpu")

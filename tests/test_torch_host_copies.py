@@ -1,6 +1,7 @@
 """The port's own copies of the reference's numpy-only host modules
-(constants, lights, lightplane, synthetic) held against the originals so
-they cannot drift, and the port's default device: tensors are made on the
+(constants, lights, lightplane, synthetic) and of the numpy function
+``importance.tf_difference_points`` held against the originals so they
+cannot drift, and the port's default device: tensors are made on the
 CUDA card unless the caller names another device."""
 
 import dataclasses
@@ -15,6 +16,7 @@ import torch
 from cpm_tpu.core import constants as jconstants
 from cpm_tpu.core import lights as jlights
 from cpm_tpu.io import synthetic as jsynthetic
+from cpm_tpu.ops import importance as jimportance
 from cpm_tpu.ops import lightplane as jlightplane
 from cpm_tpu_torch.core import camera as tcamera
 from cpm_tpu_torch.core import constants as tconstants
@@ -23,6 +25,7 @@ from cpm_tpu_torch.core import lights as tlights
 from cpm_tpu_torch.core import types as ttypes
 from cpm_tpu_torch.io import convert
 from cpm_tpu_torch.io import synthetic as tsynthetic
+from cpm_tpu_torch.ops import importance as timportance
 from cpm_tpu_torch.ops import lightplane as tlightplane
 from cpm_tpu_torch.ops import sampling as tsampling
 
@@ -130,6 +133,28 @@ def test_copied_synthetic_is_bit_equal(fn, args):
     else:
         assert got.dtype == want.dtype and got.shape == want.shape
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["edit", "self", "other_points", "eps"])
+def test_copied_tf_difference_points_is_bit_equal(case):
+    rs = np.random.default_rng(7)
+    pa = np.array([0.0, 0.2, 0.45, 0.55, 1.0], np.float32)
+    ca = rs.random((5, 4)).astype(np.float32)
+    pb, cb, kw = pa, ca.copy(), {}
+    if case == "edit":
+        cb[2:4] = rs.random((2, 4))
+    elif case == "other_points":
+        pb = np.array([0.0, 0.3, 0.5, 1.0], np.float32)
+        cb = rs.random((4, 4)).astype(np.float32)
+    elif case == "eps":
+        cb = ca + np.float32(5e-4)
+        kw = dict(eps=1e-3)
+    want = jimportance.tf_difference_points(pa, ca, pb, cb, **kw)
+    got = timportance.tf_difference_points(pa, ca, pb, cb, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float32 and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    assert (got[1].max() > 0.0) == (case in ("edit", "other_points"))
 
 
 # --- the default device -------------------------------------------------

@@ -169,7 +169,7 @@ def test_radial_splat_and_sweep_match_float64_oracle(frame):
     assert err.mean() < IMAGE_MEAN_ERR, err.mean()
 
 
-@pytest.mark.parametrize("what", ["march", "trace_chunk", "hilbert",
+@pytest.mark.parametrize("what", ["march", "screen_space", "hilbert",
                                   "guided"])
 def test_unported_paths_raise(frame, what):
     _, state0, _, _, tscene, _ = frame
@@ -181,13 +181,10 @@ def test_unported_paths_raise(frame, what):
         with pytest.raises(NotImplementedError):
             tstep.render_state(tscene, state, cfg)
         return
-    if what == "trace_chunk":
-        cfg = PipelineConfig(
-            tracer=TracerConfig(max_interactions=1, trace_chunk=8),
-            photons_x=4, photons_y=4)
-        state = tstep.init_state(tscene, cfg)
+    if what == "screen_space":
         with pytest.raises(NotImplementedError):
-            tstep.full_trace_step(tscene, state, cfg)
+            tstep.build_importance_grid(tscene, PipelineConfig(**small),
+                                        screen_space_weight=0.25)
         return
     extra = ({"sample_order": "hilbert"} if what == "hilbert"
              else {"guided_emission": True})
@@ -197,9 +194,10 @@ def test_unported_paths_raise(frame, what):
 
 def test_port_needs_no_jax():
     """With jax, jaxlib, flax and the reference package cpm_tpu all made
-    unimportable, the port and chip_smoke import and a 16^3 volume / 16^2
-    photon / 16^2 pixel frame runs on the CPU, asked for by name; no
-    module of any of them is loaded afterwards."""
+    unimportable, the port and chip_smoke import, a 16^3 volume / 16^2
+    photon / 16^2 pixel frame runs on the CPU, asked for by name, and so
+    does a correlated step through ``step()`` with a checkpoint round trip
+    before it; no module of any of them is loaded afterwards."""
     script = textwrap.dedent("""
         import sys
         blocked = ("jax", "jaxlib", "flax", "cpm_tpu")
@@ -224,6 +222,21 @@ def test_port_needs_no_jax():
         assert tuple(image.shape) == (16, 16, 4)
         assert bool(torch.isfinite(image).all())
         assert int((state.photons.positions[..., 0] < 1e30).sum()) > 0
+
+        import os, tempfile
+        from cpm_tpu_torch.io import checkpoint
+        from cpm_tpu_torch.pipeline import step
+        from cpm_tpu_torch.pipeline.state import DirtyFlags
+        grid = step.build_importance_grid(scene, config)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "state")
+            checkpoint.save_checkpoint(path, state, config)
+            state, config = checkpoint.load_checkpoint(path, device="cpu")
+        after = step.step(scene, state, config, DirtyFlags(tf=True), grid)
+        assert after.recompute_phase == state.recompute_phase + 1
+        assert int(after.retraced.sum()) + (after.n_remaining == 0) > 0
+        assert after.light_volume.device.type == "cpu"
+        assert bool(torch.isfinite(after.light_volume).all())
         assert splat_product.splat_product_direct.launches == 0
         assert splat_product.splat_product_tiled.launches == 0
         assert splat_product.bin_deposits.launches == 0
