@@ -60,12 +60,35 @@ no result, without them. It imports nothing but the port. In order it:
    within 1% relative L1);
 7. runs one ``correlated_step_scalable`` at the large frame (budget
    419,584), counted, and times both designs on its deposits;
-8. runs a small frame (16^3 volume, 32^2 photons, 32^2 pixels) on the
+8. drives BASELINE config 4 at full width (bench.py:343-446: a 128^3 x
+   32-step orbiting sphere, 256^2 photons x 4 interactions, budget 10%):
+   ``VolumeSequence.prepare`` (timed), ``full_trace_step``, then
+   ``advance_time`` for t = 1..8, each counted (one splat launch), timed
+   in turns with ``full_trace_step`` of the same step and compared with
+   it (relative L1, and the stale map's); steps 1 and 2 drained to the end
+   with ``correlated_step`` (ceil(flagged / budget) batches, within 1e-3
+   of a full retrace); the host waits of one step; the kernel (both
+   designs) against the plain version on a step's own signed delta list;
+   the stages of a step beside ``full_trace_step``; and a small playback (48^3 x 24, 32^2 photons) on the card and on the
+   CPU (within 1%);
+9. drives BASELINE config 3 (bench.py:173-280: ``ct_head_like(256)``,
+   256^2 photons x 4 interactions): an importance-guided frame
+   (``init_state(importance_grid=...)`` with ``guided_emission``),
+   counted, with the kernel held against the plain version on its
+   deposits and its stages timed; a pilot wave, its contribution guide,
+   six uniform and six guided waves (bright-cell variance ratio; the
+   total-irradiance bias must stay under 0.15); three ticks of
+   ``progressive_step_guided``;
+10. drives the default frame with a point, a cone and an area light, and
+   with the directional light in Hilbert sample order, each counted and
+   held against the plain splat;
+11. runs a small frame (16^3 volume, 32^2 photons, 32^2 pixels) on the
    card and on the CPU, where the tests hold the port against the JAX
    reference, and asserts they agree (relative L1 under 1%);
-9. checks the tracer on the card against Beer-Lambert physics in a
+12. checks the tracer on the card against Beer-Lambert physics in a
    homogeneous volume;
-10. prints a ``kernels`` JSON line and, last, the device JSON line.
+13. prints its wall time, a ``kernels`` JSON line and, last, the device
+   JSON line.
 
 A failing phase raises; nothing is caught.
 """
@@ -88,14 +111,18 @@ import torch
 
 from cpm_tpu_torch.core.camera import Camera
 from cpm_tpu_torch.core.config import (PipelineConfig, RecomputeConfig,
-                                       RenderConfig, TracerConfig)
+                                       RenderConfig, SplatConfig,
+                                       TracerConfig)
 from cpm_tpu_torch.core.lights import Light
 from cpm_tpu_torch.core.scene import Scene
 from cpm_tpu_torch.core.types import TransferFunction, Volume, f32_scalar
 from cpm_tpu_torch.io import synthetic
 from cpm_tpu_torch.kernels import splat_product as sp
-from cpm_tpu_torch.ops import emit, rng, sampling, select, splat, tracer
+from cpm_tpu_torch.ops import (emit, mixer, rng, sampling, select, splat,
+                               tracer)
+from cpm_tpu_torch.ops.importance import ImportanceWeights
 from cpm_tpu_torch.pipeline import step
+from cpm_tpu_torch.pipeline import timevarying as tv
 from cpm_tpu_torch.pipeline.state import DirtyFlags
 
 RTOL = 1e-4  # atomics reorder the fp32 sums: rounding-level differences
@@ -112,6 +139,12 @@ FRAME_REL_L1 = 1e-2
 DRAINED_RTOL = 1e-3
 UNCHANGED_ATOL = 1e-4
 OPACITY_EDIT = 1.5  # the transfer-function edit: every opacity times this
+# A playback step drained of its flagged photons against a full retrace of
+# that step (the reference's tests/test_timevarying.py:88).
+DRAINED_PLAYBACK_REL_L1 = 1e-3
+# Guided against uniform emission: the total irradiance of six waves each
+# (bench.py:242-243; tests/test_guided_emission.py:113).
+GUIDED_BIAS = 0.15
 
 
 def build_frame(device=None, vol_dim=128, photons=256, max_interactions=4,
@@ -646,6 +679,34 @@ def between_frames(tag) -> dict:
     return out
 
 
+def expect_frame(what: str, config, state, img, dev, launches) -> None:
+    """A frame's checks: the kernel launched once in the design the wrapper
+    names for its slots, photons deposited, light volume and image on the
+    card, finite, the image not empty, and the light volume equal to the
+    plain splat of the frame's own deposits."""
+    slots = state.photons.positions.shape[0] * state.photons.positions.shape[1]
+    dim = step.light_volume_shape(config)
+    expect_launches(what, launches, [sp.choose_design(
+        slots, state.photons.radius_rel, dim)])
+    deposited = int((state.photons.positions[..., 0] < 1e30).sum())
+    lv = state.light_volume
+    alpha = float(img[..., 3].max())
+    print(f"{what}: deposited photons {deposited}, light volume sum "
+          f"{float(lv.sum()):.6g}, image alpha max {alpha:.4f}, launches "
+          f"{launches}")
+    if lv.device != dev or img.device != dev:
+        raise AssertionError(f"{what}: the frame left the card")
+    if deposited <= 0:
+        raise AssertionError(f"{what}: no photon was deposited")
+    if not (bool(torch.isfinite(lv).all()) and bool(torch.isfinite(img).all())):
+        raise AssertionError(f"{what}: non-finite light volume or image")
+    side = config.render.width
+    if img.shape != (side, side, 4) or alpha <= 0.0:
+        raise AssertionError(f"{what}: empty or misshapen image")
+    compare(lv, splat.splat_all(state.photons, dim, method="matmul"),
+            f"{what}: light volume (kernel) vs plain splat")
+
+
 def counted_frame(what: str, dev, tag, reps: int, **frame) -> tuple:
     """Drive the main path once with every kernel's count set to 0 just
     before and read just after; the scene is built with no ``device``
@@ -668,25 +729,7 @@ def counted_frame(what: str, dev, tag, reps: int, **frame) -> tuple:
     print(f"{what} (first run, includes warm-up): {ms:.1f} ms; {slots} "
           f"deposit slots -> {dim}, design {design}, launches {launches} "
           f"({tag})")
-    expect_launches(f"{what}: full_trace_step", launches, [design])
-    deposited = int((state.photons.positions[..., 0] < 1e30).sum())
-    lv = state.light_volume
-    print(f"{what}: deposited photons {deposited}, light volume "
-          f"{tuple(lv.shape)} sum {float(lv.sum()):.6g}, image "
-          f"{tuple(img.shape)} alpha max {float(img[..., 3].max()):.4f}")
-    if lv.device != dev or img.device != dev:
-        raise AssertionError(f"{what}: the frame left the card")
-    if deposited <= 0:
-        raise AssertionError(f"{what}: no photon was deposited")
-    if not (bool(torch.isfinite(lv).all()) and bool(torch.isfinite(img).all())):
-        raise AssertionError(f"{what}: non-finite light volume or image")
-    side = config.render.width
-    if img.shape != (side, side, 4) or float(img[..., 3].max()) <= 0.0:
-        raise AssertionError(f"{what}: empty or misshapen image")
-    # The frame's light volume (kernel) against the plain version of the
-    # splat on the frame's own deposits.
-    compare(lv, splat.splat_all(state.photons, dim, method="matmul"),
-            f"{what}: light volume (kernel) vs plain splat")
+    expect_frame(what, config, state, img, dev, launches)
     on_own = time_on_deposits(f"the {what}", state.photons, dim, reps, tag)
     return scene, config, state, img, launches, on_own
 
@@ -1010,6 +1053,405 @@ def correlated_large(scene, config, state, dev, tag) -> dict:
             "on_signed": on_signed, "first_run_ms": ms}
 
 
+# --- time-varying playback and every emission mode -------------------------
+
+
+def build_config4(device=None, dim=128, steps=32, photons=256,
+                  max_interactions=4, max_steps=6000, fraction=0.1,
+                  width=512, tf_points=None, volume_dim=None):
+    """BASELINE config 4 (bench.py:343-373): the orbiting, pulsating sphere
+    ``time_varying_sequence(dim, steps, seed=0)``, default TFs, one
+    directional light at (0, -1, 0.3). Returns (the volumes as numpy,
+    scene at step 0, config)."""
+    vols = synthetic.time_varying_sequence(dim, steps, seed=0)
+    tf = TransferFunction.from_points(
+        *(tf_points or synthetic.default_tf_points()), device=device)
+    tfs = TransferFunction.from_points(
+        *synthetic.default_scattering_points(), device=device)
+    scene = Scene.create(Volume.from_data(vols[0], device=device), tf, tfs,
+                         [Light.directional((0.0, -1.0, 0.3))],
+                         Camera.create(device=device))
+    extra = {}
+    if volume_dim:
+        extra["splat"] = SplatConfig(volume_size_from_radius=False,
+                                     volume_dim=volume_dim)
+    config = PipelineConfig(
+        photons_x=photons, photons_y=photons,
+        tracer=TracerConfig(max_interactions=max_interactions,
+                            max_steps=max_steps),
+        recompute=RecomputeConfig(max_photons_fraction=fraction),
+        render=RenderConfig(width=width, height=width), **extra)
+    return vols, scene, config
+
+
+def with_volume(scene, data):
+    return dataclasses.replace(scene, volume=dataclasses.replace(
+        scene.volume, data=data))
+
+
+def playback_config4(dev, tag) -> dict:
+    """BASELINE config 4 at full width: 32 steps of 128^3, 256^2 photons x
+    4 interactions, budget 10%. Prepare the sequence (timed), a full trace,
+    then ``advance_time`` for t = 1..8 (one splat launch each, timed in
+    turns with ``full_trace_step`` of the same step, both light volumes
+    compared), two steps drained to the end against a full retrace, the
+    host waits of one step, and the kernel on a step's own delta list."""
+    vols, scene, config = build_config4()
+    if scene.device != dev:
+        raise AssertionError(f"a scene built with no device lies on "
+                             f"{scene.device}, not on {dev}")
+    seq, prep_ms = timed_once(lambda: tv.VolumeSequence.prepare(vols))
+    state0, full0_ms = timed_once(lambda: step.full_trace_step(
+        scene, step.init_state(scene, config), config))
+    n = state0.photons.n
+    budget = step.recompute_budget(config, n)
+    dim = step.light_volume_shape(config)
+    r = f32_scalar(config.tracer.radius_rel)
+    slots = 2 * config.tracer.max_interactions * budget
+    design = sp.choose_design(slots, r, dim)
+    weights = ImportanceWeights().normalized()
+    print(f"config 4: VolumeSequence.prepare of {tuple(seq.volumes.shape)} "
+          f"(min/max {tuple(seq.minmax.shape)}, diff {tuple(seq.diff.shape)}) "
+          f"{prep_ms:.1f} ms with the upload; first full_trace_step "
+          f"{full0_ms:.1f} ms; budget {budget} of {n} photons, {slots} signed "
+          f"delta slots a step -> {dim}, design {design} ({tag})")
+
+    def grid_at(t):
+        return tv.time_step_importance(
+            seq.minmax, seq.diff, float(t), scene.tf.positions,
+            scene.tf.colors, tuple(seq.volumes.shape[1:]), seq.cell_size,
+            weights)
+
+    # 1. Eight steps, one correlated batch each, in turns with a full
+    # retrace of the same step.
+    sc, st = scene, state0
+    steps, launches = [], collections.Counter()
+    for t in range(1, 9):
+        before = dataclasses.replace(st, retraced=torch.zeros_like(
+            st.retraced), n_remaining=0)
+        reset_counts()
+        (sc, st), ms = timed_once(
+            lambda: tv.advance_time(sc, st, seq, float(t), config))
+        counted = read_counts()
+        expect_launches(f"advance_time to step {t}", counted, [design])
+        launches.update(counted)
+        full, full_ms = timed_once(lambda: step.full_trace_step(
+            with_volume(scene, seq.volumes[t]), state0, config))
+        if not torch.equal(sc.volume.data, seq.volumes[t]):
+            raise AssertionError(f"advance_time to step {t} did not swap in "
+                                 "that step's volume")
+        err = rel_l1(st.light_volume, full.light_volume)
+        stale = rel_l1(state0.light_volume, full.light_volume)
+        steps.append({"t": t, "ms": ms, "full_ms": full_ms, "rel_l1": err,
+                      "stale_rel_l1": stale, "n_remaining": st.n_remaining})
+        print(f"config 4 step {t}: advance_time {ms:.1f} ms, full_trace_step "
+              f"{full_ms:.1f} ms; rel L1 to the full retrace {err:.3e} "
+              f"(stale map {stale:.3e}); {st.n_remaining} flagged photons "
+              f"left; launches {counted} ({tag})")
+        if not bool(torch.isfinite(st.light_volume).all()):
+            raise AssertionError(f"step {t}: non-finite light volume")
+        if st.recompute_phase != t:
+            raise AssertionError("the recompute phase did not advance once "
+                                 "per advance_time")
+        if t == 1:
+            first = (before, st, grid_at(1))
+    del full
+
+    # 2. The first two steps, each drained to the end.
+    sc, st = scene, state0
+    drains = []
+    for t in (1, 2):
+        grid = grid_at(t)
+        flagged = int((step.recompute_importance(
+            config, grid, st.photons, st.light_samples) > 0.0).sum())
+        reset_counts()
+        t0 = time.perf_counter()
+        sc, st = tv.advance_time(sc, st, seq, float(t), config)
+        batches = 1
+        while st.n_remaining > 0:
+            st = step.correlated_step(sc, st, config, grid, budget)
+            batches += 1
+            if batches > 4096:
+                raise AssertionError("the drain did not converge")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counted = read_counts()
+        full = step.full_trace_step(with_volume(scene, seq.volumes[t]),
+                                    state0, config)
+        err = rel_l1(st.light_volume, full.light_volume)
+        want = -(-flagged // budget)
+        drains.append({"t": t, "flagged": flagged, "batches": batches,
+                       "ms": ms, "rel_l1": err})
+        print(f"config 4 step {t} drained: {flagged} of {n} photons flagged, "
+              f"{batches} batches in {ms:.1f} ms, launches {counted}; rel L1 "
+              f"to the full retrace {err:.3e} (held to "
+              f"{DRAINED_PLAYBACK_REL_L1}) ({tag})")
+        if batches != want or flagged <= 0:
+            raise AssertionError(f"step {t}: {batches} batches, not "
+                                 f"ceil({flagged} / {budget}) = {want}")
+        expect_launches(f"drain of step {t}", counted, [design] * batches)
+        if not err < DRAINED_PLAYBACK_REL_L1:
+            raise AssertionError(f"a drained playback step is {err:.3e} "
+                                 "from a full retrace")
+    del full
+
+    # 3. Where one step makes the host wait for the card.
+    before, after, grid = first
+    waits = host_waits(lambda: tv.advance_time(scene, state0, seq, 1.0,
+                                               config))
+    total = sum(waits.values())
+    print(f"config 4: one advance_time makes the host wait for the card "
+          f"{total} times; at " + ", ".join(
+              f"{w} x{c}" for w, c in waits.most_common(8)) + f" ({tag})")
+
+    # 4. The kernel on the first step's own signed delta list.
+    imp = step.recompute_importance(config, grid, before.photons,
+                                    before.light_samples)
+    pos, pw = batch_deposits(before, after, config)
+    if pos.shape[0] != slots:
+        raise AssertionError(f"{pos.shape[0]} delta slots, not {slots}")
+    on_delta, ref = check_on_list(
+        f"the {slots} signed delta slots of a config 4 playback step", pos,
+        pw, r, dim, 50, tag)
+    compare(after.light_volume, before.light_volume + ref,
+            "config 4 step 1: light volume (kernel) vs previous + plain delta")
+    del ref
+
+    # 5. The stages of that step, 3 warm repetitions each, beside a full
+    # retrace of the same step.
+    indices, valid, _ = select.select_photons_to_recompute(
+        imp, budget, exclude=before.retraced)
+    sub, safe = step.selected_samples(before.light_samples, indices, valid)
+    scene1 = with_volume(scene, seq.volumes[1])
+    old = dataclasses.replace(before.photons, iteration=0, radius_rel=r)
+    key = rng.fold_in(before.key, 0)
+
+    def retrace():
+        return tracer.trace_photons(
+            scene1.volume, scene1.tf, scene1.tf_scattering, sub, key,
+            config.tracer, lane_ids=safe)
+
+    merged = tracer.merge_recomputed(old, retrace(), indices, valid)
+    stages = {
+        "sequence_sample (mix)": lambda: mixer.sequence_sample(
+            seq.volumes, 1.5),
+        "time_step_importance": lambda: grid_at(1),
+        "recompute_importance (path importance)":
+            lambda: step.recompute_importance(config, grid, old,
+                                              before.light_samples),
+        "select_photons_to_recompute":
+            lambda: select.select_photons_to_recompute(
+                imp, budget, exclude=before.retraced),
+        f"retrace of {budget} lanes (trace_photons)": retrace,
+        "merge_recomputed": lambda: tracer.merge_recomputed(
+            old, merged, indices, valid),
+        "splat_selected_delta (kernel)": lambda: splat.splat_selected_delta(
+            old, merged, indices, valid, dim, method="cuda"),
+        "advance_time": lambda: tv.advance_time(scene, before, seq, 1.0,
+                                                config),
+        "full_trace_step": lambda: step.full_trace_step(scene1, state0,
+                                                        config),
+    }
+    stage_ms = {name: cuda_ms(fn, reps=3) for name, fn in stages.items()}
+    for name, t in stage_ms.items():
+        print(f"config 4 stage {name}: {t:.3f} ms ({tag})")
+    del seq, merged
+    torch.cuda.empty_cache()
+    return {"launches": dict(launches), "steps": steps, "drains": drains,
+            "host_waits": total, "on_delta": on_delta, "prepare_ms": prep_ms,
+            "stage_ms": stage_ms}
+
+
+def check_small_playback(dev) -> None:
+    """A small playback (48^3 x 24 steps, 32^2 photons, 2 interactions, the
+    reference's tests/test_timevarying.py:26-65 setup) on the card and on
+    the CPU: light volumes within FRAME_REL_L1 after each of two steps."""
+    flat_step = ([0.0, 0.3, 0.32, 1.0],
+                 [(0.2, 0.2, 0.2, 0.0), (0.2, 0.2, 0.2, 0.0),
+                  (0.9, 0.8, 0.7, 0.5), (1.0, 1.0, 1.0, 0.8)])
+    out = {}
+    for device in (None, "cpu"):
+        vols, scene, config = build_config4(
+            device, dim=48, steps=24, photons=32, max_interactions=2,
+            max_steps=1500, fraction=1.0, width=24, tf_points=flat_step,
+            volume_dim=16)
+        seq = tv.VolumeSequence.prepare(vols, device=device)
+        st = step.full_trace_step(scene, step.init_state(scene, config),
+                                  config)
+        lvs = []
+        for t in (1, 2):
+            scene, st = tv.advance_time(scene, st, seq, float(t), config)
+            lvs.append(st.light_volume)
+        out[device] = lvs
+    if out[None][0].device != dev or out["cpu"][0].device.type != "cpu":
+        raise AssertionError("a small playback ran on another device than "
+                             "asked")
+    errs = [rel_l1(a, b) for a, b in zip(out[None], out["cpu"])]
+    print(f"small playback, card vs CPU: light volume rel L1 "
+          + ", ".join(f"{e:.3e}" for e in errs) + " (light volume sums "
+          + ", ".join(f"{float(b.sum()):.6g}" for b in out["cpu"]) + ")")
+    if not max(errs) < FRAME_REL_L1:
+        raise AssertionError("the card and the CPU disagree on a small "
+                             "playback")
+
+
+def build_config3(device=None, dim=256, photons=256):
+    """BASELINE config 3 (bench.py:173-203): ``ct_head_like(256)``, default
+    TFs, one directional light at (0.2, -1, 0.3), 256^2 photons x 4
+    interactions, max_steps 8000, a 512^2 image."""
+    volume = Volume.from_data(synthetic.ct_head_like(dim), device=device)
+    tf = TransferFunction.from_points(*synthetic.default_tf_points(),
+                                      device=device)
+    tfs = TransferFunction.from_points(
+        *synthetic.default_scattering_points(), device=device)
+    scene = Scene.create(volume, tf, tfs,
+                         [Light.directional((0.2, -1.0, 0.3))],
+                         Camera.create(device=device))
+    config = PipelineConfig(
+        photons_x=photons, photons_y=photons,
+        tracer=TracerConfig(max_interactions=4, max_steps=8000),
+        recompute=RecomputeConfig(max_photons_fraction=0.1),
+        render=RenderConfig(width=512, height=512))
+    return scene, config
+
+
+GUIDE_FLOOR = 0.25  # bench.py:204
+
+
+def guided_config3(dev, tag) -> dict:
+    """BASELINE config 3: an importance-guided frame (counted), the kernel
+    on its deposits, a pilot wave and its contribution guide, six uniform
+    and six guided waves (variance ratio and bias), and three ticks of
+    ``progressive_step_guided``."""
+    scene, config = build_config3()
+    if scene.device != dev:
+        raise AssertionError(f"a scene built with no device lies on "
+                             f"{scene.device}, not on {dev}")
+    light = scene.lights[0]
+    dim = step.light_volume_shape(config)
+    guided = dataclasses.replace(config, guided_emission=True)
+
+    # 1. The importance-guided frame, counted.
+    grid = step.build_importance_grid(scene, config)
+    reset_counts()
+    t0 = time.perf_counter()
+    state = step.init_state(scene, guided, importance_grid=grid)
+    state = step.full_trace_step(scene, state, guided)
+    img = step.render_state(scene, state, guided)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    frame_launches = read_counts()
+    print(f"config 3 guided frame (first run): {ms:.1f} ms ({tag})")
+    expect_frame("config 3 guided frame", guided, state, img, dev,
+                 frame_launches)
+    uniform = step.init_state(scene, config).light_samples
+    if torch.equal(state.light_samples.origins, uniform.origins):
+        raise AssertionError("guided emission did not move the samples")
+    pos, pw = splat.product_deposits(state.photons)
+    on_frame, _ = check_on_list(
+        f"the {pos.shape[0]} deposit slots of the config 3 guided frame",
+        pos, pw, state.photons.radius_rel, dim, 50, tag)
+    stages = {
+        "build_importance_grid": lambda: step.build_importance_grid(
+            scene, config),
+        "init_state (guided emit)": lambda: step.init_state(
+            scene, guided, importance_grid=grid),
+        "full_trace_step": lambda: step.full_trace_step(scene, state, guided),
+        "render_state": lambda: step.render_state(scene, state, guided)}
+    stage_ms = {name: cuda_ms(fn, reps=3) for name, fn in stages.items()}
+    for name, t in stage_ms.items():
+        print(f"config 3 stage {name}: {t:.3f} ms ({tag})")
+    del img, pos, pw
+
+    # 2. Adaptive waves (bench.py:206-243): a pilot wave, its contribution
+    # guide, six uniform and six guided waves of equal photon count.
+    def wave(guide, seed):
+        g = sampling.stratified_grid_2d(config.photons_x, config.photons_y)
+        if guide is not None:
+            g = sampling.warp_samples_2d(g, guide, floor=GUIDE_FLOOR)
+        ls = emit.emit(light, g, key=rng.fold_in(rng.prng_key(seed), 7))
+        st = step.init_state(scene, config, seed=seed, light_samples=ls)
+        reset_counts()
+        st = step.full_trace_step(scene, st, config)
+        expect_launches(f"wave of seed {seed}", read_counts(), [
+            sp.choose_design(st.photons.positions.shape[0] * st.photons.n,
+                             st.photons.radius_rel, dim)])
+        return st, g
+
+    t0 = time.perf_counter()
+    pilot, pilot_grid = wave(None, 999)
+    guide = emit.emission_guide_from_wave(
+        pilot_grid[:, 0:2], pilot_grid[:, 3], pilot.photons.powers, 64, 64)
+    lv_u = [wave(None, s)[0].light_volume.cpu().numpy() for s in range(6)]
+    lv_g = [wave(guide, s)[0].light_volume.cpu().numpy() for s in range(6)]
+    waves_s = time.perf_counter() - t0
+    mean_u = np.mean(lv_u, axis=0)
+    bright = mean_u.sum(-1) > np.percentile(mean_u.sum(-1), 90)
+
+    def relvar(waves):
+        s = np.stack([w.sum(-1)[bright] for w in waves])
+        return float(np.mean(s.var(0) / np.maximum(s.mean(0), 1e-12) ** 2))
+
+    var_u, var_g = relvar(lv_u), relvar(lv_g)
+    bias = float(abs(np.mean([x.sum() for x in lv_g])
+                     / max(np.mean([x.sum() for x in lv_u]), 1e-9) - 1.0))
+    print(f"config 3 waves: pilot + 6 uniform + 6 guided (floor "
+          f"{GUIDE_FLOOR}) in {waves_s:.1f} s, one launch each; bright-cell "
+          f"relative variance uniform {var_u:.6f}, guided {var_g:.6f}, ratio "
+          f"{var_u / max(var_g, 1e-12):.3f}; total-irradiance bias "
+          f"{bias:.4f} (held to {GUIDED_BIAS}) ({tag})")
+    if not bias < GUIDED_BIAS:
+        raise AssertionError(f"guided emission is biased by {bias:.4f}")
+
+    # 3. Three ticks of progressive_step_guided from the pilot's state.
+    st, g = pilot, None
+    tick_ms = []
+    for tick in range(1, 4):
+        (st, g), ms = timed_once(lambda: step.progressive_step_guided(
+            scene, st, config, guide=g))
+        tick_ms.append(ms)
+        if st.photons.iteration != tick or not bool(
+                torch.isfinite(st.light_volume_accum).all()) or not float(
+                g.max()) > 0.0:
+            raise AssertionError(f"progressive_step_guided tick {tick}")
+    print(f"config 3 progressive_step_guided: 3 ticks "
+          + ", ".join(f"{t:.1f}" for t in tick_ms) + f" ms; next guide max "
+          f"{float(g.max()):.4g} ({tag})")
+    del pilot, st, state, grid
+    torch.cuda.empty_cache()
+    return {"launches": frame_launches, "on_frame": on_frame,
+            "stage_ms": stage_ms, "variance_uniform": var_u,
+            "variance_guided": var_g, "bias": bias, "tick_ms": tick_ms}
+
+
+# Every other light type and the Hilbert order at the default scene.
+OTHER_LIGHTS = {
+    "point light": (Light.point((0.5, 0.9, 0.5)), {}),
+    "cone light": (Light.cone((0.5, 1.4, 0.5), (0.0, -1.0, 0.0)), {}),
+    "area light": (Light.area((0.5, 1.4, 0.5), (0.0, -1.0, 0.0)), {}),
+    "directional light, Hilbert order": (
+        Light.directional((0.0, -1.0, 0.3)), {"sample_order": "hilbert"}),
+}
+
+
+def other_lights(dev, tag) -> dict:
+    """init_state -> full_trace_step -> render_state at the default frame
+    for a point, a cone and an area light, and for the directional light
+    in Hilbert order, each counted and held against the plain splat."""
+    scene, config = build_frame()
+    out = {}
+    for what, (light, extra) in OTHER_LIGHTS.items():
+        lit = dataclasses.replace(scene, lights=(light,))
+        cfg = dataclasses.replace(config, **extra)
+        reset_counts()
+        (state, img), ms = timed_once(lambda: run_frame(lit, cfg))
+        counted = read_counts()
+        print(f"{what} frame: {ms:.1f} ms ({tag})")
+        expect_frame(f"{what} frame", cfg, state, img, dev, counted)
+        out[what] = {"ms": ms, "launches": counted}
+    return out
+
+
 def kernel_rows(shapes: dict, default_launches: dict,
                 large_launches: dict, on_frames: dict) -> list:
     """The ``kernels`` line: one row per kernel, its top-level numbers
@@ -1053,12 +1495,12 @@ def kernel_rows(shapes: dict, default_launches: dict,
     return rows
 
 
-def delta_row(caller: str, shape: str, launches: dict, steps: int,
+def delta_row(caller: str, shape: str, launches: dict, calls: int,
               on_list: dict) -> dict:
-    """A ``kernels`` row for the splat kernel as a correlated update
-    launches it: the design the wrapper chose on that path's own deposit
-    list, with the other design's times beside it. ``launches`` are the
-    counts read after ``steps`` correlated steps."""
+    """A ``kernels`` row for the splat kernel as a driven path beyond the
+    forward frame launches it: the design the wrapper chose on that path's
+    own deposit list, with the other design's times beside it.
+    ``launches`` are the counts read after ``calls`` calls of the path."""
     chosen = on_list["chosen"]
     launches = launches[f"splat_product_{chosen}"]
     return {
@@ -1066,8 +1508,7 @@ def delta_row(caller: str, shape: str, launches: dict, steps: int,
         "source": "cpm_tpu_torch/csrc/splat_product.cu",
         "replaces": "cpm_tpu/pallas/splat_mxu.py:57",
         "caller": caller, "shape": shape, "launches": launches,
-        "correlated_steps": steps,
-        "launches_per_correlated_step": launches / steps,
+        "calls": calls, "launches_per_call": launches / calls,
         "held_against_plain": True,
         "max_abs_err": on_list["max_abs_err"][chosen],
         "ms": on_list["median_ms"][chosen], "ms_runs": on_list[chosen],
@@ -1086,6 +1527,7 @@ def delta_row(caller: str, shape: str, launches: dict, steps: int,
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     tag = card()
     print(tag)
@@ -1131,6 +1573,16 @@ def main() -> None:
     check_small_correlated(dev)
     del scene, state
 
+    # --- time-varying playback (config 4), guided emission (config 3) and
+    # the other emission modes, counted ---
+    t_new = time.perf_counter()
+    playback = playback_config4(dev, tag)
+    check_small_playback(dev)
+    guided = guided_config3(dev, tag)
+    lights = other_lights(dev, tag)
+    print(f"config 4, config 3 and the other emission modes took "
+          f"{time.perf_counter() - t_new:.1f} s")
+
     on_frames = {"default": on_default, **between_frames(tag)}
 
     # The large frame: a 256^3 cloud, 2048^2 photons x 4 interactions
@@ -1146,6 +1598,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     on_frames["default correlated step's delta"] = correlated["on_delta"]
     on_frames["large correlated step's added"] = correlated_big["on_added"]
+    on_frames["config 4 playback step's delta"] = playback["on_delta"]
+    on_frames["config 3 guided frame"] = guided["on_frame"]
     # The wrapper's threshold is held to the deposits the driven paths
     # splat: at every traced size and on every list a correlated step
     # launched, the design it chose is the faster one there, or within
@@ -1191,10 +1645,26 @@ def main() -> None:
         correlated_big["on_added"]))
     rows[-1]["first_run_ms"] = correlated_big["first_run_ms"]
     rows[-1]["on_signed_list"] = correlated_big["on_signed"]
+    rows.append(delta_row(
+        "advance_time (config 4)",
+        f"{playback['on_delta']['deposits']} signed delta slots -> "
+        "65x65x65x3", playback["launches"], len(playback["steps"]),
+        playback["on_delta"]))
+    rows[-1].update({k: playback[k] for k in (
+        "steps", "drains", "host_waits", "prepare_ms", "stage_ms")})
+    rows.append(delta_row(
+        "full_trace_step (guided, config 3)",
+        f"{guided['on_frame']['deposits']} deposit slots -> 65x65x65x3",
+        guided["launches"], 1, guided["on_frame"]))
+    rows[-1].update({k: guided[k] for k in (
+        "stage_ms", "variance_uniform", "variance_guided", "bias",
+        "tick_ms")})
+    rows[-1]["other_emission_frames"] = lights
     for row in rows:
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']} was launched by no driven "
                                  f"path ({row['caller']})")
+    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(f"profiler windows: {dict(WINDOWS)}; records the short ones "
           f"lacked: {dict(MISSING)} (a short window's time is each name's "
           "mean record times its known launches per call)")

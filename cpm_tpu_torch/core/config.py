@@ -2,11 +2,12 @@
 ``cpm_tpu/core/config.py`` with the same defaults (a test holds the two
 together).
 
-The port honours the fields that the forward frame, the progressive
-tick and the correlated update use. Options whose code has not been
+The port honours the fields that the forward frame (every light type,
+both sample orders, guided emission), the progressive tick and the
+correlated update use. Options whose code has not been
 ported yet raise ``NotImplementedError`` where they are read
 (``photon_dtype="float16"``, ``no_single_scattering``,
-``guided_emission``, ``sample_order="hilbert"``, ``render.method="march"``).
+``render.method="march"``).
 ``use_compaction`` and ``brick_scale`` shape only the TPU form of the
 trace loop; its results do not depend on them, and the port ignores them.
 ``recompute.importance_mode="quadrature_mxu"`` (the default) names a

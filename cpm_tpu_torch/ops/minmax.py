@@ -1,4 +1,6 @@
-"""Min/max uniform grid of a volume (``cpm_tpu/ops/minmax.py:25-42``).
+"""Min/max uniform grids of a volume and of a volume sequence
+(``cpm_tpu/ops/minmax.py``: ``volume_min_max`` :25-42,
+``sequence_min_max`` :45-55).
 
 Cells start at voxel 0 and the last cell along an axis may be partial,
 as in the original ``volumeMinMaxKernel``. The reference pools with
@@ -17,7 +19,11 @@ Tensor = torch.Tensor
 
 
 def _pool_max(x: Tensor, cell: int) -> Tensor:
-    return F.max_pool3d(x[None, None], cell, cell, ceil_mode=True)[0, 0]
+    """Per-cell maximum over the last three axes of ``x``."""
+    lead = x.shape[:-3]
+    out = F.max_pool3d(x.reshape(-1, 1, *x.shape[-3:]), cell, cell,
+                       ceil_mode=True)
+    return out.reshape(*lead, *out.shape[-3:])
 
 
 def volume_min_max(volume: Volume, cell_size: int = 8) -> UniformGrid3D:
@@ -32,3 +38,10 @@ def volume_min_max(volume: Volume, cell_size: int = 8) -> UniformGrid3D:
         cell_dim=torch.full((3,), float(cell_size), device=dev),
         volume_dim=torch.tensor([w, h, d], dtype=torch.float32, device=dev),
     )
+
+
+def sequence_min_max(volumes: Tensor, cell_size: int = 8) -> Tensor:
+    """(T, D, H, W) sequence -> (T, gz, gy, gx, 2) per-cell (min, max) of
+    every step, in one batched pass."""
+    return torch.stack([-_pool_max(-volumes, cell_size),
+                        _pool_max(volumes, cell_size)], dim=-1)

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from cpm_tpu_torch.core.device import resolve
+
 Tensor = torch.Tensor
 
 MASK = 0xFFFFFFFF
@@ -75,3 +77,26 @@ def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
     """The key words of ``jax.random.fold_in(key, data)``: threefry of the
     counter pair (0, data as uint32) under ``key``."""
     return threefry2x32(int(key[0]), int(key[1]), 0, int(data) & MASK)
+
+
+# The two twins below follow jax.random's partitionable threefry scheme
+# (``jax_threefry_partitionable``, the default since JAX 0.5): element i of
+# a draw is keyed by the counter pair (i >> 32, i & MASK).
+
+def split(key: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
+    """The key words of ``jax.random.split(key, num)``: key i is threefry
+    of the counter pair (0, i), that is ``fold_in(key, i)``."""
+    return [fold_in(key, i) for i in range(num)]
+
+
+def uniform(key: tuple[int, int], shape, device=None) -> Tensor:
+    """``jax.random.uniform(key, shape)`` (float32 in [0, 1)) bit for bit:
+    the two words of threefry over (i >> 32, i & MASK) for flat index i,
+    XORed, then :func:`bits_to_uniform`; on the card unless ``device``
+    names another."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    i = torch.arange(n, dtype=torch.int64, device=resolve(device))
+    a, b = threefry2x32(int(key[0]), int(key[1]), i >> 32, i & MASK)
+    return bits_to_uniform(a ^ b).reshape(tuple(shape))

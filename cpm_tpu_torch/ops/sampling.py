@@ -1,5 +1,6 @@
-"""Volume sampling and the deterministic sample grid
-(``cpm_tpu/ops/sampling.py``: ``stratified_grid_2d`` :248-267,
+"""Volume sampling, the stratified sample grid, its Hilbert order and the
+guided-emission warp (``cpm_tpu/ops/sampling.py``: ``stratified_grid_2d``
+:248-267, ``hilbert_index_2d`` :270-292, ``warp_samples_2d`` :295-348,
 ``sample_volume_trilinear`` :54-74).
 
 On a GPU a trilinear fetch is eight plain gathers; the reference's packed
@@ -11,19 +12,27 @@ from __future__ import annotations
 import torch
 
 from cpm_tpu_torch.core.device import resolve
+from cpm_tpu_torch.ops import rng
 
 Tensor = torch.Tensor
 
 
-def stratified_grid_2d(nx: int, ny: int, device=None) -> Tensor:
-    """(nx*ny, 4) samples (u, v, 0, pdf=1) at the cell centres of an nx x ny
-    grid, x fastest."""
+def stratified_grid_2d(nx: int, ny: int, key=None, device=None) -> Tensor:
+    """(nx*ny, 4) samples (u, v, 0, pdf=1) on an nx x ny grid, x fastest:
+    at the cell centres, or jittered inside each cell when a (k0, k1)
+    ``key`` is given (the draws of ``jax.random.split`` and ``uniform``)."""
     device = resolve(device)
     ix = torch.arange(nx, dtype=torch.float32, device=device)
     iy = torch.arange(ny, dtype=torch.float32, device=device)
     gy, gx = torch.meshgrid(iy, ix, indexing="ij")
-    u = (gx + 0.5) / nx
-    v = (gy + 0.5) / ny
+    if key is None:
+        ju = jv = 0.5
+    else:
+        k1, k2 = rng.split(key)
+        ju = rng.uniform(k1, gx.shape, device)
+        jv = rng.uniform(k2, gy.shape, device)
+    u = (gx + ju) / nx
+    v = (gy + jv) / ny
     n = nx * ny
     return torch.stack([u.reshape(-1), v.reshape(-1),
                         torch.zeros(n, device=device),
@@ -60,3 +69,70 @@ def sample_volume_trilinear(data: Tensor, pos: Tensor) -> Tensor:
                 wx = frac[..., 0] if dx else 1.0 - frac[..., 0]
                 acc = acc + flat[base + cx] * (wx * wy * wz)
     return acc
+
+
+def hilbert_index_2d(u: Tensor, v: Tensor, order: int = 8) -> Tensor:
+    """Hilbert-curve index (int32) of samples in [0, 1]^2 on a 2^order grid,
+    for a spatially coherent sample order (the classic d2xy inverse, in
+    the reference's branch-free form)."""
+    n = 1 << order
+    x = torch.clamp((u * n).to(torch.int32), 0, n - 1)
+    y = torch.clamp((v * n).to(torch.int32), 0, n - 1)
+    d = torch.zeros_like(x)
+    for i in range(order - 1, -1, -1):
+        s = 1 << i
+        rx = ((x & s) > 0).to(torch.int32)
+        ry = ((y & s) > 0).to(torch.int32)
+        d = d + s * s * ((3 * rx) ^ ry)
+        # Rotate the quadrant: where ry == 0, mirror (if rx == 1), then
+        # swap x and y.
+        flip = (ry == 0) & (rx == 1)
+        x = torch.where(flip, s - 1 - x, x)
+        y = torch.where(flip, s - 1 - y, y)
+        swap = ry == 0
+        x, y = torch.where(swap, y, x), torch.where(swap, x, y)
+    return d
+
+
+def warp_samples_2d(samples: Tensor, guide: Tensor,
+                    floor: float = 0.1) -> Tensor:
+    """Warp stratified (u, v) samples by the inverse CDF of a (Bv, Bu)
+    guide map: the emission density becomes the piecewise-constant mixture
+    f = (1 - floor) * guide / mean(guide) + floor, and each sample's pdf
+    column is multiplied by f(u', v'), so ``power = radiance / pdf`` stays
+    unbiased for any guide. v follows the row-marginal inverse CDF, u the
+    conditional inverse CDF of v's row; both invert piecewise-linear CDFs
+    exactly, so a stratified grid stays stratified."""
+    bv, bu = guide.shape
+    dev = samples.device
+    fl = torch.tensor(floor, dtype=torch.float32, device=dev)
+    g = torch.clamp(guide, min=0.0)
+    mean = torch.clamp(g.mean(), min=1e-20)
+    f = (1.0 - fl) * g / mean + fl  # (Bv, Bu), mean ~ 1
+
+    u, v = samples[:, 0].contiguous(), samples[:, 1].contiguous()
+    zero = torch.zeros(1, dtype=torch.float32, device=dev)
+    # v: row-marginal inverse CDF.
+    mv = f.mean(dim=1)
+    mv = mv / mv.sum()
+    cdf_v = torch.cat([zero, torch.cumsum(mv, 0)])
+    cdf_v[-1] = 1.0
+    r = torch.clamp(torch.searchsorted(cdf_v, v, right=True) - 1, 0, bv - 1)
+    binmass_v = torch.clamp(cdf_v[r + 1] - cdf_v[r], min=1e-20)
+    v2 = (r + (v - cdf_v[r]) / binmass_v) / bv
+    pdf_v = binmass_v * bv
+
+    # u: conditional inverse CDF of row r.
+    rowsum = torch.clamp(f.sum(dim=1, keepdim=True), min=1e-20)
+    cdf_u = torch.cat([zero.expand(bv, 1), torch.cumsum(f / rowsum, 1)], 1)
+    cdf_u[:, -1] = 1.0
+    rows = cdf_u[r]  # (N, Bu+1)
+    c = torch.clamp((rows <= u[:, None]).sum(1) - 1, 0, bu - 1)
+    lo = rows.gather(1, c[:, None])[:, 0]
+    hi = rows.gather(1, c[:, None] + 1)[:, 0]
+    binmass_u = torch.clamp(hi - lo, min=1e-20)
+    u2 = (c + (u - lo) / binmass_u) / bu
+    pdf_u = binmass_u * bu
+
+    pdf = samples[:, 3] * (pdf_v * pdf_u)
+    return torch.stack([u2, v2, samples[:, 2], pdf], dim=-1)

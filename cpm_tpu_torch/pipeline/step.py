@@ -8,7 +8,9 @@ function over (Scene, PhotonMapState), and :func:`step` dispatches on
   incremental -1/+1 resplat; :func:`correlated_step_scalable` is the same
   update with two splats (removed, added) in place of the signed one.
 - :func:`progressive_step`: one refinement tick (next iteration, smaller
-  radius, a fresh photon wave folded into the running average).
+  radius, a fresh photon wave folded into the running average);
+  :func:`progressive_step_guided` re-emits each wave by the contribution
+  guide of the one before.
 - :func:`build_importance_grid`, :func:`build_tf_change_importance_grid`:
   the importance grids the correlated update ranks photons by.
 
@@ -25,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from cpm_tpu_torch.core import lights as L
 from cpm_tpu_torch.core.config import PipelineConfig
 from cpm_tpu_torch.core.scene import Scene
 from cpm_tpu_torch.core.types import (LightSamples, PhotonData,
@@ -39,18 +42,32 @@ from cpm_tpu_torch.pipeline.state import DirtyFlags, PhotonMapState
 Tensor = torch.Tensor
 
 
-def emit_all(scene: Scene, config: PipelineConfig) -> LightSamples:
-    """Emit the light-sample bundle of every light, concatenated; N =
-    photons_x * photons_y samples per light, in linear sample order.
-    Directional emission draws no random numbers, so it takes no key."""
-    if config.sample_order != "linear":
-        raise NotImplementedError(
-            f"sample_order={config.sample_order!r} is not ported yet")
-    if config.guided_emission:
-        raise NotImplementedError("guided emission is not ported yet")
+def emit_all(scene: Scene, config: PipelineConfig, key: tuple,
+             importance_grid: UniformGrid3D | None = None) -> LightSamples:
+    """Emit the light-sample bundle of every light, concatenated: N =
+    photons_x * photons_y samples per light, in linear or Hilbert order
+    (``config.sample_order``); light i draws under ``fold_in(key, i)``.
+
+    With ``config.guided_emission`` and an importance grid, each
+    directional light's sample grid is warped by the grid's projection
+    onto its light plane; the warp's pdf keeps power / pdf unbiased."""
     grid = sampling.stratified_grid_2d(config.photons_x, config.photons_y,
                                        device=scene.device)
-    bundles = [emit_mod.emit(light, grid) for light in scene.lights]
+    if config.sample_order == "hilbert":
+        order = max(config.photons_x, config.photons_y).bit_length()
+        idx = sampling.hilbert_index_2d(grid[:, 0], grid[:, 1], order=order)
+        grid = grid[torch.argsort(idx, stable=True)]
+    bundles = []
+    for i, light in enumerate(scene.lights):
+        g = grid
+        if (config.guided_emission and importance_grid is not None
+                and light.type == L.DIRECTIONAL):
+            guide = emit_mod.build_emission_guide(
+                importance_grid, light, n_u=config.guide_resolution,
+                n_v=config.guide_resolution)
+            g = sampling.warp_samples_2d(grid, guide,
+                                         floor=config.guide_floor)
+        bundles.append(emit_mod.emit(light, g, key=rng.fold_in(key, i)))
     if len(bundles) == 1:
         return bundles[0]
     return LightSamples(
@@ -91,11 +108,20 @@ def splat_footprint(config: PipelineConfig) -> int:
     return fp
 
 
-def init_state(scene: Scene, config: PipelineConfig,
-               seed: int = 0) -> PhotonMapState:
+def init_state(scene: Scene, config: PipelineConfig, seed: int = 0,
+               importance_grid: UniformGrid3D | None = None,
+               light_samples: LightSamples | None = None) -> PhotonMapState:
     """Fresh state: emitted light samples, empty photon buffer, zero light
-    volume; ``seed`` roots the state's threefry key."""
-    ls = emit_all(scene, config)
+    volume; ``seed`` roots the state's threefry key, and emission draws
+    under ``fold_in(key, 1)``. Pass ``importance_grid`` (with
+    ``config.guided_emission``) for importance-guided emission, or a
+    bundle built elsewhere as ``light_samples`` (e.g. one guided by
+    :func:`emit_mod.emission_guide_from_wave`)."""
+    key = rng.prng_key(seed)
+    ls = light_samples
+    if ls is None:
+        ls = emit_all(scene, config, rng.fold_in(key, 1),
+                      importance_grid=importance_grid)
     dev = scene.device
     photons = PhotonData.create(
         ls.n, config.tracer.max_interactions,
@@ -105,7 +131,7 @@ def init_state(scene: Scene, config: PipelineConfig,
                         dtype=torch.float32, device=dev)
     return PhotonMapState(
         photons=photons, light_samples=ls, light_volume=zeros,
-        light_volume_accum=zeros, key=rng.prng_key(seed),
+        light_volume_accum=zeros, key=key,
         retraced=torch.zeros(ls.n, dtype=torch.bool, device=dev),
         n_remaining=0, recompute_phase=0)
 
@@ -170,6 +196,36 @@ def progressive_step(scene: Scene, state: PhotonMapState,
     accum = (state.light_volume_accum * it + lv) / (it + 1.0)
     return dataclasses.replace(state, photons=photons, light_volume=lv,
                                light_volume_accum=accum)
+
+
+def progressive_step_guided(scene: Scene, state: PhotonMapState,
+                            config: PipelineConfig,
+                            guide: Tensor | None = None,
+                            light_index: int = 0, floor: float = 0.25):
+    """A progressive tick with self-adaptive guided emission: the wave
+    re-emits its sample grid warped by the contribution guide measured from
+    the previous wave (``guide``; None for the first, uniform wave) and
+    returns the next wave's guide. Adaptivity uses only past waves, so each
+    wave is conditionally unbiased. One directional light only.
+
+    Returns (new state, next guide)."""
+    light = scene.lights[light_index]
+    if light.type != L.DIRECTIONAL:
+        raise ValueError("guided progressive refinement supports "
+                         "directional lights")
+    grid = sampling.stratified_grid_2d(config.photons_x, config.photons_y,
+                                       device=scene.device)
+    if guide is not None:
+        grid = sampling.warp_samples_2d(grid, guide, floor=floor)
+    iteration = state.photons.iteration + 1
+    ls = emit_mod.emit(light, grid, key=rng.fold_in(state.key, iteration),
+                       iteration=iteration)
+    new_state = progressive_step(
+        scene, dataclasses.replace(state, light_samples=ls), config)
+    n_g = config.guide_resolution
+    next_guide = emit_mod.emission_guide_from_wave(
+        grid[:, 0:2], grid[:, 3], new_state.photons.powers, n_g, n_g)
+    return new_state, next_guide
 
 
 # --- correlated selective recomputation -----------------------------------

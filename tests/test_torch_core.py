@@ -255,15 +255,6 @@ def test_emit_directional_matches(direction):
     assert got.iteration == int(want.iteration)
 
 
-@pytest.mark.parametrize("light", [
-    jlights.Light.point((0.5, 2.0, 0.5)),
-    jlights.Light.cone((0.5, 2.0, 0.5), (0, -1, 0)),
-    jlights.Light.area((0.5, 2.0, 0.5), (0, -1, 0))])
-def test_emit_other_lights_not_ported(light):
-    with pytest.raises(NotImplementedError):
-        temit.emit(light, tsampling.stratified_grid_2d(4, 4, device="cpu"))
-
-
 # --- phase ------------------------------------------------------------------
 
 @pytest.mark.parametrize("ptype,g", [(jphase.ISOTROPIC, 0.0),

@@ -27,7 +27,9 @@ from cpm_tpu_torch.io import convert
 from cpm_tpu_torch.io import synthetic as tsynthetic
 from cpm_tpu_torch.ops import importance as timportance
 from cpm_tpu_torch.ops import lightplane as tlightplane
+from cpm_tpu_torch.ops import rng as trng
 from cpm_tpu_torch.ops import sampling as tsampling
+from cpm_tpu_torch.pipeline import timevarying as ttimevarying
 
 TESTS = Path(__file__).resolve().parent
 PAIRS = {"constants": (jconstants, tconstants), "lights": (jlights, tlights),
@@ -179,6 +181,10 @@ CONSTRUCTORS = {
     "Camera.create": (tcamera, lambda **kw: tcamera.Camera.create(**kw).eye),
     "stratified_grid_2d": (tsampling, lambda **kw:
                            tsampling.stratified_grid_2d(3, 2, **kw)),
+    "rng.uniform": (trng, lambda **kw: trng.uniform((0, 1), (3, 2), **kw)),
+    "VolumeSequence.prepare": (
+        ttimevarying, lambda **kw: ttimevarying.VolumeSequence.prepare(
+            np.zeros((2, 8, 8, 8), np.float32), **kw).volumes),
 }
 
 
@@ -235,7 +241,8 @@ def test_converters_without_a_device_ask_for_the_card(monkeypatch):
 CALL = re.compile(
     r"\b(?:t\w*|sampling|convert)\.(?:Volume\.from_data|"
     r"TransferFunction\.from_points|PhotonData\.create|Camera\.create|"
-    r"stratified_grid_2d|scene_from_numpy|state_from_numpy)\(")
+    r"stratified_grid_2d|scene_from_numpy|state_from_numpy|uniform|"
+    r"VolumeSequence\.prepare)\(")
 
 
 def _call_text(src: str, start: int) -> str:

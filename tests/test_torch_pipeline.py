@@ -169,35 +169,41 @@ def test_radial_splat_and_sweep_match_float64_oracle(frame):
     assert err.mean() < IMAGE_MEAN_ERR, err.mean()
 
 
-@pytest.mark.parametrize("what", ["march", "screen_space", "hilbert",
-                                  "guided"])
+@pytest.mark.parametrize("what", ["march", "screen_space", "float16",
+                                  "no_single_scattering"])
 def test_unported_paths_raise(frame, what):
     _, state0, _, _, tscene, _ = frame
-    small = dict(tracer=TracerConfig(max_interactions=1, max_steps=50),
-                 photons_x=4, photons_y=4)
+    small = dict(photons_x=4, photons_y=4)
+    tracer = dict(max_interactions=1, max_steps=50)
     if what == "march":
-        cfg = PipelineConfig(render=RenderConfig(method="march"), **small)
+        cfg = PipelineConfig(render=RenderConfig(method="march"),
+                             tracer=TracerConfig(**tracer), **small)
         state = tstep.init_state(tscene, cfg)
         with pytest.raises(NotImplementedError):
             tstep.render_state(tscene, state, cfg)
         return
     if what == "screen_space":
         with pytest.raises(NotImplementedError):
-            tstep.build_importance_grid(tscene, PipelineConfig(**small),
-                                        screen_space_weight=0.25)
+            tstep.build_importance_grid(
+                tscene, PipelineConfig(tracer=TracerConfig(**tracer), **small),
+                screen_space_weight=0.25)
         return
-    extra = ({"sample_order": "hilbert"} if what == "hilbert"
-             else {"guided_emission": True})
+    extra = ({"photon_dtype": "float16"} if what == "float16"
+             else {"no_single_scattering": True})
+    cfg = PipelineConfig(tracer=TracerConfig(**tracer, **extra), **small)
     with pytest.raises(NotImplementedError):
-        tstep.init_state(tscene, PipelineConfig(**small, **extra))
+        tstep.full_trace_step(tscene, tstep.init_state(tscene, cfg), cfg)
 
 
 def test_port_needs_no_jax():
     """With jax, jaxlib, flax and the reference package cpm_tpu all made
-    unimportable, the port and chip_smoke import, a 16^3 volume / 16^2
-    photon / 16^2 pixel frame runs on the CPU, asked for by name, and so
-    does a correlated step through ``step()`` with a checkpoint round trip
-    before it; no module of any of them is loaded afterwards."""
+    unimportable, the port (time-varying playback included) and chip_smoke
+    import, a 16^3 volume / 16^2 photon / 16^2 pixel frame runs on the
+    CPU, asked for by name, and so do a correlated step through ``step()``
+    with a checkpoint round trip before it, one ``advance_time`` of a
+    16^3 x 3 sequence and a guided ``init_state`` with an area light
+    beside the directional one; no module of any of them is loaded
+    afterwards."""
     script = textwrap.dedent("""
         import sys
         blocked = ("jax", "jaxlib", "flax", "cpm_tpu")
@@ -207,6 +213,7 @@ def test_port_needs_no_jax():
         import torch
         import cpm_tpu_torch
         import chip_smoke
+        from cpm_tpu_torch.pipeline import timevarying
         from cpm_tpu_torch.kernels import splat_product
 
         def loaded():
@@ -237,6 +244,27 @@ def test_port_needs_no_jax():
         assert int(after.retraced.sum()) + (after.n_remaining == 0) > 0
         assert after.light_volume.device.type == "cpu"
         assert bool(torch.isfinite(after.light_volume).all())
+
+        import dataclasses
+        from cpm_tpu_torch.core.lights import Light
+        from cpm_tpu_torch.io import synthetic
+        seq = timevarying.VolumeSequence.prepare(
+            synthetic.time_varying_sequence(16, 3), device="cpu")
+        moving = dataclasses.replace(scene, volume=dataclasses.replace(
+            scene.volume, data=seq.volumes[0]))
+        moving, played = timevarying.advance_time(moving, state, seq, 1.0,
+                                                  config)
+        assert torch.equal(moving.volume.data, seq.volumes[1])
+        assert played.recompute_phase == state.recompute_phase + 1
+        assert bool(torch.isfinite(played.light_volume).all())
+        lit = dataclasses.replace(scene, lights=scene.lights + (
+            Light.area((0.5, 1.5, 0.5), (0.0, -1.0, 0.0)),))
+        guided = dataclasses.replace(config, guided_emission=True,
+                                     guide_resolution=8)
+        samples = step.init_state(lit, guided, importance_grid=grid
+                                  ).light_samples
+        assert samples.n == 2 * 16 * 16
+        assert bool(torch.isfinite(samples.powers).all())
         assert splat_product.splat_product_direct.launches == 0
         assert splat_product.splat_product_tiled.launches == 0
         assert splat_product.bin_deposits.launches == 0
