@@ -58,6 +58,26 @@ no result, without them. It imports nothing but the port. In order it:
    host waits for the card counted; a small correlated step on the card is
    held against the same step on the CPU (selection equal, light volume
    within 1% relative L1);
+   Then, at the default frame: the trace's statistics
+   (``return_stats``: photons equal to the run without them, no added host
+   wait, the active history's last slot in the last group of flights);
+   the importance grid with ``screen_space_weight=0.5`` (equal to base x
+   (0.5 + 0.5 x vis), nowhere above base) at the default camera and a
+   narrow one, whose drain through ``step()`` (counted) retraces the same
+   photons as the unweighted drain, bit for bit; NEE for each light type
+   at the frame's deposits (finite, >= 0, zero outside a cone), and the
+   box mesh's spans of the light samples against the slab test's; the
+   float16 photon storage (the trace cast bit for bit at 4 interactions,
+   where some powers overflow to +inf; a counted frame at 2 interactions
+   within 2% of float32's, the kernel on its +inf sentinels, a counted
+   float16 drain after the TF edit equal to the full retrace on the
+   flagged photons, a grid of ones in two batches equal to the full
+   trace); a counted frame without single scattering, and the small frame
+   without it on the card against the CPU; a counted frame rendered by the
+   gather marcher (``render.method="march"``), the dense marcher against
+   its loop on 4,096 pixels, the sweep's intermediate image against
+   ``march_zplanes_oracle`` on 4,096 rays, both renderers timed in turns,
+   and the eye-inside camera at 256^2 (sweep against marcher);
 7. runs one ``correlated_step_scalable`` at the large frame (budget
    419,584), counted, and times both designs on its deposits;
 8. drives BASELINE config 4 at full width (bench.py:343-446: a 128^3 x
@@ -69,16 +89,17 @@ no result, without them. It imports nothing but the port. In order it:
    with ``correlated_step`` (ceil(flagged / budget) batches, within 1e-3
    of a full retrace); the host waits of one step; the kernel (both
    designs) against the plain version on a step's own signed delta list;
-   the stages of a step beside ``full_trace_step``; and a small playback (48^3 x 24, 32^2 photons) on the card and on the
-   CPU (within 1%);
+   the stages of a step beside ``full_trace_step``; the statistics of a
+   step's retrace; and a small playback (48^3 x 24, 32^2 photons) on the
+   card and on the CPU (within 1%);
 9. drives BASELINE config 3 (bench.py:173-280: ``ct_head_like(256)``,
    256^2 photons x 4 interactions): an importance-guided frame
    (``init_state(importance_grid=...)`` with ``guided_emission``),
    counted, with the kernel held against the plain version on its
    deposits and its stages timed; a pilot wave, its contribution guide,
    six uniform and six guided waves (bright-cell variance ratio; the
-   total-irradiance bias must stay under 0.15); three ticks of
-   ``progressive_step_guided``;
+   total-irradiance bias must stay under 0.15); the guided samples as the
+   debug image (mean 1); three ticks of ``progressive_step_guided``;
 10. drives the default frame with a point, a cone and an area light, and
    with the directional light in Hilbert sample order, each counted and
    held against the plain splat;
@@ -113,13 +134,14 @@ from cpm_tpu_torch.core.camera import Camera
 from cpm_tpu_torch.core.config import (PipelineConfig, RecomputeConfig,
                                        RenderConfig, SplatConfig,
                                        TracerConfig)
-from cpm_tpu_torch.core.lights import Light
+from cpm_tpu_torch.core.lights import CONE, Light
 from cpm_tpu_torch.core.scene import Scene
 from cpm_tpu_torch.core.types import TransferFunction, Volume, f32_scalar
 from cpm_tpu_torch.io import synthetic
 from cpm_tpu_torch.kernels import splat_product as sp
-from cpm_tpu_torch.ops import (emit, mixer, rng, sampling, select, splat,
-                               tracer)
+from cpm_tpu_torch.ops import (debug, emit, gather, intersect, minmax, mixer,
+                               nee, rng, sampling, screen_importance, select,
+                               splat, sweep_render, tracer)
 from cpm_tpu_torch.ops.importance import ImportanceWeights
 from cpm_tpu_torch.pipeline import step
 from cpm_tpu_torch.pipeline import timevarying as tv
@@ -546,17 +568,31 @@ def rel_l1(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.cpu() - want.cpu()).abs().sum() / want.abs().sum())
 
 
-def check_small_frame(dev) -> None:
-    """The same small frame on the card and on the CPU."""
+def with_tracer(config, **options):
+    return dataclasses.replace(config, tracer=dataclasses.replace(
+        config.tracer, **options))
+
+
+def with_render(config, **options):
+    return dataclasses.replace(config, render=dataclasses.replace(
+        config.render, **options))
+
+
+def check_small_frame(dev, **options) -> None:
+    """The same small frame on the card and on the CPU, with the tracer
+    ``options`` given."""
     small = dict(vol_dim=16, photons=32, max_interactions=2, width=32)
-    gpu_state, gpu_img = run_frame(*build_frame(**small))
-    cpu_state, cpu_img = run_frame(*build_frame("cpu", **small))
+    runs = []
+    for device in (None, "cpu"):
+        scene, config = build_frame(device, **small)
+        runs.append(run_frame(scene, with_tracer(config, **options)))
+    (gpu_state, gpu_img), (cpu_state, cpu_img) = runs
     if gpu_img.device != dev or cpu_img.device.type != "cpu":
         raise AssertionError("a small frame ran on another device than asked")
     lv_err = rel_l1(gpu_state.light_volume, cpu_state.light_volume)
     img_err = rel_l1(gpu_img, cpu_img)
-    print(f"small frame, card vs CPU: light volume rel L1 {lv_err:.3e}, "
-          f"image rel L1 {img_err:.3e}")
+    print(f"small frame{f' {options}' if options else ''}, card vs CPU: "
+          f"light volume rel L1 {lv_err:.3e}, image rel L1 {img_err:.3e}")
     if float(cpu_img[..., 3].max()) <= 0.0:
         raise AssertionError("the small frame's image is empty")
     if not (lv_err < FRAME_REL_L1 and img_err < FRAME_REL_L1):
@@ -968,8 +1004,9 @@ def correlated_default(scene, config, state, dev, tag) -> dict:
           + ", ".join(f"{w} x{c}" for w, c in waits.most_common())
           + f" ({tag})")
     return {"launches": launches, "batches": batches, "slots": slots,
-            "on_delta": on_delta, "stage_ms": times, "host_waits": total,
-            "host_waits_in_retrace": in_trace}
+            "flagged": flagged, "on_delta": on_delta, "stage_ms": times,
+            "host_waits": total, "host_waits_in_retrace": in_trace,
+            "drained": drained, "full_edit": full_edit}
 
 
 def check_small_correlated(dev) -> None:
@@ -1255,11 +1292,19 @@ def playback_config4(dev, tag) -> dict:
     stage_ms = {name: cuda_ms(fn, reps=3) for name, fn in stages.items()}
     for name, t in stage_ms.items():
         print(f"config 4 stage {name}: {t:.3f} ms ({tag})")
+
+    # 6. The wavefront statistics of that step's retrace.
+    stats = trace_stats(
+        f"the retrace of {budget} lanes in config 4 step 1",
+        lambda on: tracer.trace_photons(
+            scene1.volume, scene1.tf, scene1.tf_scattering, sub, key,
+            config.tracer, lane_ids=safe, return_stats=on),
+        config.tracer.flights_per_iteration, tag)
     del seq, merged
     torch.cuda.empty_cache()
     return {"launches": dict(launches), "steps": steps, "drains": drains,
             "host_waits": total, "on_delta": on_delta, "prepare_ms": prep_ms,
-            "stage_ms": stage_ms}
+            "stage_ms": stage_ms, "trace_stats": stats}
 
 
 def check_small_playback(dev) -> None:
@@ -1403,6 +1448,20 @@ def guided_config3(dev, tag) -> dict:
     if not bias < GUIDED_BIAS:
         raise AssertionError(f"guided emission is biased by {bias:.4f}")
 
+    # The guided samples as the debug image (SamplesToImage): normalized,
+    # its mean is 1.
+    warped = sampling.warp_samples_2d(sampling.stratified_grid_2d(
+        config.photons_x, config.photons_y), guide, floor=GUIDE_FLOOR)
+    image, image_ms = timed_once(
+        lambda: debug.samples_to_image(warped, DEBUG_SIDE, DEBUG_SIDE))
+    mean = float(image.mean())
+    print(f"config 3 guided samples as a {DEBUG_SIDE}^2 debug image: "
+          f"{image_ms:.3f} ms; mean {mean:.7f}, min {float(image.min()):.4f}, "
+          f"max {float(image.max()):.4f} ({tag})")
+    if image.device != dev or not abs(mean - 1.0) < 1e-5:
+        raise AssertionError("the debug image of the guided samples does not "
+                             "have a mean of 1, or left the card")
+
     # 3. Three ticks of progressive_step_guided from the pilot's state.
     st, g = pilot, None
     tick_ms = []
@@ -1421,7 +1480,8 @@ def guided_config3(dev, tag) -> dict:
     torch.cuda.empty_cache()
     return {"launches": frame_launches, "on_frame": on_frame,
             "stage_ms": stage_ms, "variance_uniform": var_u,
-            "variance_guided": var_g, "bias": bias, "tick_ms": tick_ms}
+            "variance_guided": var_g, "bias": bias, "tick_ms": tick_ms,
+            "debug_image_ms": image_ms}
 
 
 # Every other light type and the Hilbert order at the default scene.
@@ -1450,6 +1510,572 @@ def other_lights(dev, tag) -> dict:
         expect_frame(f"{what} frame", cfg, state, img, dev, counted)
         out[what] = {"ms": ms, "launches": counted}
     return out
+
+
+# --- the tracer's forward options, the gather marcher, screen-space
+# importance, NEE, mesh spans and the debug image ---------------------------
+
+PHOTON_FIELDS = ("positions", "powers", "directions", "exit_power",
+                 "exit_direction")
+# Float16 photon storage against float32 (tests/test_misc_parity.py:32-48):
+# positions within the ~2^-11 quantization, the light volume within 2%
+# relative L1. The largest finite float16; a stored power above it is +inf.
+F16_POS_ATOL = 1e-3
+F16_FRAME_REL_L1 = 0.02
+F16_MAX = 65504.0
+# The marcher's dense form against its loop form, and the sweep's
+# intermediate image against its oracle (tests/test_sweep.py:71-72), each
+# on CHECK_RAYS rays of the default frame.
+DENSE_RTOL, DENSE_ATOL = 1e-4, 1e-6
+ORACLE_RTOL, ORACLE_ATOL = 1e-3, 5e-5
+CHECK_RAYS = 4096
+# The eye inside the volume: the two-pass sweep against the marcher at 512
+# steps (tests/test_sweep.py:134-148): mean |diff| under INSIDE_MEAN and
+# correlation over INSIDE_CORR off a rim of INSIDE_RIM pixels. That test's
+# light volume (uniform x 0.4 on 16^3) is held to its absolute bound; the
+# frame's light volume, whose image values reach ~10^3, to the bound times
+# the marcher's mean |value| (as tests/test_sweep.py:113-116 holds the
+# sweep's image to the marcher's).
+INSIDE_MEAN, INSIDE_CORR, INSIDE_RIM = 0.02, 0.98, 4
+INSIDE_SIDE, INSIDE_STEPS = 256, 512
+SCREEN_WEIGHT = 0.5
+GRID_RTOL = 1e-5
+# A narrow camera, whose rays miss part of the volume: there the
+# camera-visibility term is below 1 in some visible cells.
+NARROW_FOV = 12.0
+NEE_STEPS = 64
+# A ray through an edge of the box mesh hits both triangles there (three
+# or four hits, so the odd-count rule may call it inside); the reference's
+# test lets 1% of the hit set differ (tests/test_intersect_mesh.py:37-38).
+MESH_EDGE_FRACTION = 0.01
+DEBUG_SIDE = 256
+
+
+def used_slots(photons) -> torch.Tensor:
+    """(I, N) True where a deposit is stored (float16's sentinel is +inf)."""
+    return photons.positions[..., 0].float() < 1e30
+
+
+def photon_bytes(photons) -> int:
+    return sum(getattr(photons, f).numel() * getattr(photons, f).element_size()
+               for f in PHOTON_FIELDS)
+
+
+def lanes(t: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The rows of the lanes in ``mask`` of a photon field: (I, N, ...)
+    fields hold lanes on their second axis, the exit fields on the first."""
+    return t[:, mask] if t.dim() == 3 else t[mask]
+
+
+def expect_cast(p32, p16, what: str) -> float:
+    """The float16 trace is the float32 trace cast: its three deposit fields
+    equal the float32 ones cast bit for bit (FLT_MAX and powers above
+    F16_MAX become +inf), the exit fields are equal, the deposit set is the
+    same, and the positions lie within F16_POS_ATOL. Returns the largest
+    position difference."""
+    for f in ("positions", "powers", "directions"):
+        got, want = getattr(p16, f), getattr(p32, f)
+        if got.dtype != torch.float16 or not torch.equal(got, want.half()):
+            raise AssertionError(f"{what}: float16 {f} are not the float32 "
+                                 "trace's cast")
+    for f in ("exit_power", "exit_direction"):
+        if not torch.equal(getattr(p16, f), getattr(p32, f)):
+            raise AssertionError(f"{what}: float16 run's {f} differ")
+    used = used_slots(p32)
+    if not torch.equal(used, used_slots(p16)):
+        raise AssertionError(f"{what}: the deposit sets differ")
+    err = float((p16.positions.float() - p32.positions)[used].abs().max())
+    if not err <= F16_POS_ATOL:
+        raise AssertionError(f"{what}: positions differ by {err:.3e}")
+    return err
+
+
+def float16_frames(dev, tag) -> dict:
+    """Float16 photon storage. (1) The default frame's trace in float32 and
+    in float16 under one key: the float16 fields are the float32 ones cast
+    (``expect_cast``); at 4 interactions some stored powers exceed F16_MAX
+    and become +inf, in the reference as here. (2) The default frame at 2
+    interactions, where every stored power fits (a deposit divides the
+    power by an opacity of at least 0.01: at most 1.2452 / 2 x 100^2 =
+    6,226), counted: the cast again, the light volume within
+    F16_FRAME_REL_L1 of float32's, both designs against the plain version
+    on its deposits, whose unused slots are +inf, and both frames timed in
+    turns. (3) Its correlated update after the TF edit, drained through
+    ``step()`` and counted: every flagged photon equals the float16 full
+    retrace's bit for bit and every other one is unchanged; the first
+    batch's signed delta list through both designs; a grid of ones drained
+    in two 50% batches equals the full trace (photons bit for bit, the
+    light volume within DRAINED_RTOL, ATOL_REL x its peak)."""
+    # 1. The default frame's trace at 4 interactions.
+    scene, config = build_frame()
+    init = step.init_state(scene, config)
+    key = rng.fold_in(init.key, 0)
+
+    def trace(cfg):
+        return tracer.trace_photons(scene.volume, scene.tf,
+                                    scene.tf_scattering, init.light_samples,
+                                    key, cfg.tracer)
+
+    p32 = trace(config)
+    p16 = trace(with_tracer(config, photon_dtype="float16"))
+    pos_err = expect_cast(p32, p16, "default frame, 4 interactions")
+    used = used_slots(p32)
+    over = int(((p32.powers.abs() > F16_MAX).any(-1) & used).sum())
+    inf = int((torch.isinf(p16.powers).any(-1) & used).sum())
+    print(f"float16 trace of the default frame (4 interactions): "
+          f"{int(used.sum())} deposits, the float32 trace's cast bit for bit "
+          f"(positions within {pos_err:.3e}); {over} of them carry a power "
+          f"above {F16_MAX:g}, stored as +inf ({inf}); photon buffers "
+          f"{photon_bytes(p32)} B in float32, {photon_bytes(p16)} B in "
+          f"float16 ({tag})")
+    if over != inf:
+        raise AssertionError("the overflowing powers are not the +inf ones")
+    del p32, p16
+
+    # 2. The counted float16 frame at 2 interactions.
+    scene, config = build_frame(max_interactions=2)
+    half = with_tracer(config, photon_dtype="float16")
+    dim = step.light_volume_shape(config)
+    s32, _ = run_frame(scene, config)
+    reset_counts()
+    (s16, img), ms = timed_once(lambda: run_frame(scene, half))
+    launches = read_counts()
+    print(f"float16 frame, 2 interactions (first run): {ms:.1f} ms ({tag})")
+    expect_frame("float16 frame, 2 interactions", half, s16, img, dev,
+                 launches)
+    pos_err = expect_cast(s32.photons, s16.photons,
+                          "default frame, 2 interactions")
+    biggest = float(s32.photons.powers[used_slots(s32.photons)].max())
+    lv_err = rel_l1(s16.light_volume, s32.light_volume)
+    print(f"float16 frame vs float32 under one key: positions within "
+          f"{pos_err:.3e}, largest power {biggest:.6g}, light volume rel L1 "
+          f"{lv_err:.3e} (held to {F16_FRAME_REL_L1}); photon buffers "
+          f"{photon_bytes(s32.photons)} B in float32, "
+          f"{photon_bytes(s16.photons)} B in float16")
+    if not lv_err < F16_FRAME_REL_L1:
+        raise AssertionError("the float16 frame's light volume is off")
+    pos, pw = splat.product_deposits(s16.photons)
+    unused = int(torch.isinf(pos[:, 0]).sum())
+    if unused != pos.shape[0] - int(used_slots(s16.photons).sum()):
+        raise AssertionError("the float16 frame's unused slots do not reach "
+                             "the kernel as +inf")
+    on_frame, _ = check_on_list(
+        f"the {pos.shape[0]} slots of the float16 frame ({unused} unused, "
+        "at +inf)", pos, pw, s16.photons.radius_rel, dim, 50, tag)
+    turns = [(name, cuda_ms(lambda c=c: run_frame(scene, c), reps=3))
+             for name, c in (("float32", config), ("float16", half),
+                             ("float16", half), ("float32", config))]
+    print("frames in turns, 2 interactions: " + ", ".join(
+        f"{name} {t:.3f} ms" for name, t in turns) + f" ({tag})")
+
+    # 3. Its correlated update after the TF edit, drained and counted.
+    n = s16.photons.n
+    budget = step.recompute_budget(half, n)
+    r = f32_scalar(config.tracer.radius_rel)
+    slots = 2 * half.tracer.max_interactions * budget
+    design = sp.choose_design(slots, r, dim)
+    edited = edit_tf(scene)
+    grid = step.build_importance_grid(edited, half)
+    flagged = step.recompute_importance(half, grid, s16.photons,
+                                        s16.light_samples) > 0.0
+    want_batches = -(-int(flagged.sum()) // budget)
+    reset_counts()
+    (drained, first, batches), drain_ms = timed_once(
+        lambda: drain(edited, half, s16, grid))
+    drain_launches = read_counts()
+    print(f"float16 correlated drain after the TF edit (first run): "
+          f"{int(flagged.sum())} of {n} photons flagged, budget {budget}, "
+          f"{batches} batches in {drain_ms:.1f} ms; {slots} signed delta "
+          f"slots a batch, design {design}, launches {drain_launches} ({tag})")
+    if batches != want_batches:
+        raise AssertionError(f"the float16 drain took {batches} batches, not "
+                             f"{want_batches}")
+    expect_launches("float16 drain", drain_launches, [design] * batches)
+    if drained.photons.positions.dtype != torch.float16 or not bool(
+            torch.isfinite(drained.light_volume).all()):
+        raise AssertionError("the float16 drain changed the storage type or "
+                             "left a non-finite light volume")
+    full = step.full_trace_step(edited, s16, half)
+    for f in PHOTON_FIELDS:
+        got = getattr(drained.photons, f)
+        if not (torch.equal(lanes(got, flagged),
+                            lanes(getattr(full.photons, f), flagged))
+                and torch.equal(lanes(got, ~flagged),
+                                lanes(getattr(s16.photons, f), ~flagged))):
+            raise AssertionError(f"float16 drain: {f} of the flagged photons "
+                                 "differ from the full retrace's, or others "
+                                 "moved")
+    print(f"float16 drain: flagged photons equal the full retrace's bit for "
+          f"bit, the others are unchanged; light volume rel L1 to the full "
+          f"retrace {rel_l1(drained.light_volume, full.light_volume):.3e}")
+    pos, pw = batch_deposits(s16, first, half)
+    on_delta, ref = check_on_list(
+        f"the {slots} signed delta slots of a float16 correlated step", pos,
+        pw, r, dim, 50, tag)
+    compare(first.light_volume, s16.light_volume + ref,
+            "float16 first batch: light volume (kernel) vs previous + plain "
+            "delta")
+    del ref, full, drained, first
+
+    halves = dataclasses.replace(half, recompute=dataclasses.replace(
+        half.recompute, max_photons_fraction=0.5))
+    half_budget = step.recompute_budget(halves, n)
+    ones = dataclasses.replace(grid, data=torch.ones_like(grid.data))
+    other = step.full_trace_step(scene, step.init_state(scene, half, seed=1),
+                                 half)
+    state = dataclasses.replace(other, key=s16.key)
+    for _ in range(2):
+        state = step.correlated_step(scene, state, halves, ones, half_budget)
+    same = all(torch.equal(getattr(state.photons, f), getattr(s16.photons, f))
+               for f in PHOTON_FIELDS)
+    peak = float(s16.light_volume.abs().max())
+    err = float((state.light_volume - s16.light_volume).abs().max())
+    print(f"float16 grid of ones, two 50% batches vs full_trace_step: "
+          f"photons bit-equal {same}, light volume max_abs_err {err:.3e} "
+          f"(max |ref| {peak:.3e})")
+    if not same or state.n_remaining != 0:
+        raise AssertionError("a drained float16 grid of ones did not retrace "
+                             "the full trace's photons")
+    torch.testing.assert_close(state.light_volume, s16.light_volume,
+                               rtol=DRAINED_RTOL, atol=ATOL_REL * peak)
+    del scene, s32, s16, other, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "on_frame": on_frame, "first_run_ms": ms,
+            "in_turns": turns, "light_volume_rel_l1": lv_err,
+            "drain_launches": drain_launches, "batches": batches,
+            "on_delta": on_delta, "drain_ms": drain_ms,
+            "overflow_at_4_interactions": over}
+
+
+def no_single_scattering_frame(dev, tag) -> dict:
+    """The default frame without single scattering, counted: deposits > 0,
+    the kernel on its deposits against the plain version, and the small
+    frame's trace on the card against the CPU's."""
+    scene, config = build_frame()
+    nss = with_tracer(config, no_single_scattering=True)
+    reset_counts()
+    (state, img), ms = timed_once(lambda: run_frame(scene, nss))
+    launches = read_counts()
+    print(f"no-single-scattering frame (first run): {ms:.1f} ms ({tag})")
+    expect_frame("no-single-scattering frame", nss, state, img, dev, launches)
+    pos, pw = splat.product_deposits(state.photons)
+    on_frame, _ = check_on_list(
+        f"the {pos.shape[0]} slots of the no-single-scattering frame", pos,
+        pw, state.photons.radius_rel, step.light_volume_shape(config), 50,
+        tag)
+    frame_ms = cuda_ms(lambda: run_frame(scene, nss), reps=3)
+    print(f"no-single-scattering frame: {frame_ms:.3f} ms warm ({tag})")
+    check_small_frame(dev, no_single_scattering=True)
+    del scene, state, img
+    return {"launches": launches, "on_frame": on_frame, "first_run_ms": ms,
+            "frame_ms": frame_ms}
+
+
+def trace_stats(what: str, trace, k: int, tag) -> dict:
+    """``trace(return_stats)`` with the statistics on and off: the photons
+    are equal bit for bit, the stats add no host wait, the active history's
+    last nonzero slot is one of the last group of ``k`` flights (the loop
+    tests for active lanes once a group; a group's later flights may find
+    none), or 511 once the flights outnumber the slots, and its sum over
+    flights x lanes is the mean active fraction."""
+    plain = trace(False)
+    photons, stats = trace(True)
+    for f in PHOTON_FIELDS:
+        if not torch.equal(getattr(photons, f), getattr(plain, f)):
+            raise AssertionError(f"{what}: return_stats changed the {f}")
+    waits = {on: sum(host_waits(lambda on=on: trace(on)).values())
+             for on in (False, True)}
+    times = [(on, cuda_ms(lambda on=on: trace(on), reps=3))
+             for on in (False, True, True, False)]
+    iters = stats["wavefront_iters"]
+    hist = stats["active_history"].cpu()
+    nonzero = torch.nonzero(hist)[:, 0]
+    last = int(nonzero[-1])
+    frac = float(stats["mean_active_frac"])
+    n = photons.n
+    print(f"trace statistics of {what}: {iters} flights, mean active "
+          f"fraction {frac:.6f}, stage widths {stats['stage_widths']}; host "
+          f"waits without / with the statistics {waits[False]} / "
+          f"{waits[True]}; trace in turns "
+          + ", ".join(f"{'with' if on else 'without'} {t:.3f} ms"
+                      for on, t in times)
+          + f"; active lanes by flight {hist[:last + 1].tolist()} ({tag})")
+    want = [511] if iters > 512 else list(range(max(iters - k, 0), iters))
+    if last not in want:
+        raise AssertionError(f"{what}: the history's last nonzero slot is "
+                             f"{last}, not one of {want}")
+    if waits[True] > waits[False]:
+        raise AssertionError(f"{what}: the statistics add host waits")
+    if stats["stage_widths"] != [n] or not 0.0 < frac <= 1.0 or not math.isclose(
+            float(hist.sum()) / (max(iters, 1) * n), frac, rel_tol=1e-6):
+        raise AssertionError(f"{what}: inconsistent statistics")
+    return {"wavefront_iters": iters, "mean_active_frac": frac,
+            "active_history": hist[:last + 1].tolist(), "host_waits": waits,
+            "trace_ms_in_turns": times}
+
+
+def intermediate_rays(camera, inter, grid, axis: int, n: int, dev):
+    """``n`` seeded pixels of the sweep's intermediate image and the rays
+    from the eye through their centres on the first plane
+    (tests/test_sweep.py:31-49): (pixel indices, origins, directions,
+    plane positions), on ``dev``."""
+    u_lo, u_hi, v_lo, v_hi, za = (x.detach().cpu().numpy() for x in grid)
+    rows, cols = inter.shape[:2]
+    idx = np.random.default_rng(1).choice(rows * cols, n, replace=False)
+    b_axis, c_axis = [i for i in range(3) if i != axis]
+    p = np.zeros((n, 3), np.float32)
+    p[:, axis] = za[0]
+    p[:, b_axis] = u_lo + ((idx % cols).astype(np.float32) + 0.5) / cols * (
+        u_hi - u_lo)
+    p[:, c_axis] = v_lo + ((idx // cols).astype(np.float32) + 0.5) / rows * (
+        v_hi - v_lo)
+    o = np.broadcast_to(camera.host("eye"), p.shape).astype(np.float32)
+    return (torch.from_numpy(idx).to(dev), torch.from_numpy(o).to(dev),
+            torch.from_numpy(p - o).to(dev), torch.from_numpy(za).to(dev))
+
+
+def eye_inside(scene, light_volume, dev, tag) -> dict:
+    """The eye-inside camera at INSIDE_SIDE^2: the two-pass sweep against
+    the marcher at INSIDE_STEPS steps, on the test's light volume and on
+    the frame's."""
+    camera = Camera.create(eye=(0.5, 0.5, 0.45), center=(0.5, 0.5, 2.0))
+    rc = RenderConfig(width=INSIDE_SIDE, height=INSIDE_SIDE,
+                      sampling_rate=4.0)
+    test_lv = torch.from_numpy(np.random.default_rng(7).random(
+        (16, 16, 16, 3), dtype=np.float32) * 0.4).to(dev)
+    out = {}
+    c = INSIDE_RIM
+    for what, lv in (("the test's light volume", test_lv),
+                     ("the frame's light volume", light_volume)):
+        swept, sweep_ms = timed_once(lambda: sweep_render.sweep_render(
+            scene.volume, scene.tf, lv, camera, rc))
+        marched, march_ms = timed_once(lambda: gather.render(
+            scene.volume, scene.tf, lv, camera, rc, n_steps=INSIDE_STEPS))
+        a, b = swept[c:-c, c:-c], marched[c:-c, c:-c]
+        mean = float((a - b).abs().mean())
+        corr = float(torch.corrcoef(torch.stack(
+            [a[..., :3].reshape(-1), b[..., :3].reshape(-1)]))[0, 1])
+        scale = 1.0 if lv is test_lv else float(b.abs().mean())
+        print(f"eye inside, {what}, {INSIDE_SIDE}^2: sweep (two passes) "
+              f"{sweep_ms:.1f} ms, marcher ({INSIDE_STEPS} steps) "
+              f"{march_ms:.1f} ms (first runs); mean |diff| {mean:.4e} (held "
+              f"to {INSIDE_MEAN * scale:.4e}), correlation {corr:.6f} ({tag})")
+        if not (float(swept[..., 3].sum()) > 0.0
+                and mean < INSIDE_MEAN * scale and corr > INSIDE_CORR):
+            raise AssertionError(f"eye inside, {what}: the sweep and the "
+                                 "marcher disagree")
+        out[what] = {"mean_abs_diff": mean, "correlation": corr,
+                     "sweep_ms": sweep_ms, "march_ms": march_ms}
+    return out
+
+
+def march_frame(dev, tag) -> dict:
+    """The default frame rendered by the gather marcher, counted; the dense
+    marcher against its loop twin and the sweep's intermediate image
+    against its oracle on CHECK_RAYS rays each; both renderers timed in
+    turns (march, sweep, sweep, march); the eye-inside camera."""
+    scene, config = build_frame()
+    march = with_render(config, method="march")
+    reset_counts()
+    (state, img), ms = timed_once(lambda: run_frame(scene, march))
+    launches = read_counts()
+    vol, tf, camera = scene.volume, scene.tf, scene.camera
+    lv, rc = state.light_volume_accum, config.render
+    n_steps = gather.default_steps(vol, rc.sampling_rate)
+    npix = rc.width * rc.height
+    chunk = gather.chunk_size(n_steps)
+    print(f"march-rendered frame (first run): {ms:.1f} ms; {n_steps} steps, "
+          f"{npix * n_steps / 1e6:.1f} M samples in {-(-npix // chunk)} "
+          f"chunks of {chunk} rays ({tag})")
+    expect_frame("march-rendered frame", march, state, img, dev, launches)
+    pos, pw = splat.product_deposits(state.photons)
+    on_frame, _ = check_on_list(
+        f"the {pos.shape[0]} slots of the march-rendered frame", pos, pw,
+        state.photons.radius_rel, step.light_volume_shape(config), 50, tag)
+
+    # 1. The dense marcher against its loop twin.
+    o, d = camera.rays(rc.width, rc.height)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    pick = torch.from_numpy(np.random.default_rng(0).choice(
+        npix, CHECK_RAYS, replace=False)).to(dev)
+    dense = gather.render_rays(vol, tf, lv, o[pick], d[pick], n_steps,
+                               rc.ambient)
+    loop = gather.render_rays_loop(vol, tf, lv, o[pick], d[pick], n_steps,
+                                   rc.ambient)
+    dense_err = float((dense - loop).abs().max())
+    chunked = float((dense - img.reshape(-1, 4)[pick]).abs().max())
+    print(f"render_rays vs render_rays_loop on {CHECK_RAYS} pixels: "
+          f"max_abs_err {dense_err:.3e} (max |loop| "
+          f"{float(loop.abs().max()):.3e}; held to rtol {DENSE_RTOL}, atol "
+          f"{DENSE_ATOL}); the frame's pixels, marched in chunks of {chunk}, "
+          f"differ from them by {chunked:.3e}")
+    torch.testing.assert_close(dense, loop, rtol=DENSE_RTOL, atol=DENSE_ATOL)
+
+    # 2. The sweep's intermediate image against its oracle.
+    _, inter, grid = sweep_render.sweep_render(vol, tf, lv, camera, rc,
+                                               return_intermediate=True)
+    axis, _ = sweep_render.principal_axis(camera)
+    idx, o_r, d_r, za = intermediate_rays(camera, inter, grid, axis,
+                                          CHECK_RAYS, dev)
+    oracle = sweep_render.march_zplanes_oracle(vol, tf, lv, o_r, d_r, za,
+                                               axis, rc.ambient)
+    got = inter.reshape(-1, 4)[idx]
+    oracle_err = float((got - oracle).abs().max())
+    print(f"sweep intermediate ({inter.shape[1]}x{inter.shape[0]}, "
+          f"{za.shape[0]} planes) vs march_zplanes_oracle on {CHECK_RAYS} "
+          f"rays: max_abs_err {oracle_err:.3e} (max |oracle| "
+          f"{float(oracle.abs().max()):.3e}; held to rtol {ORACLE_RTOL}, atol "
+          f"{ORACLE_ATOL})")
+    torch.testing.assert_close(got, oracle, rtol=ORACLE_RTOL,
+                               atol=ORACLE_ATOL)
+    del inter, dense, loop, oracle
+
+    # 3. Both renderers in turns, and where they make the host wait.
+    configs = {"march": march, "sweep": config}
+    turns = [(m, cuda_ms(lambda m=m: step.render_state(scene, state,
+                                                      configs[m]), reps=3))
+             for m in ("march", "sweep", "sweep", "march")]
+    waits = {m: sum(host_waits(lambda m=m: step.render_state(
+        scene, state, configs[m])).values()) for m in configs}
+    print("render_state in turns: " + ", ".join(
+        f"{m} {t:.3f} ms" for m, t in turns) + f"; host waits per render "
+        f"{waits} ({tag})")
+    inside = eye_inside(scene, lv, dev, tag)
+    del scene, state, img
+    torch.cuda.empty_cache()
+    return {"launches": launches, "on_frame": on_frame, "first_run_ms": ms,
+            "n_steps": n_steps, "chunks": -(-npix // chunk),
+            "dense_vs_loop_max_abs_err": dense_err,
+            "oracle_max_abs_err": oracle_err, "in_turns": turns,
+            "host_waits": waits, "eye_inside": inside}
+
+
+def screen_weighted(scene, config, state, unweighted: dict, dev,
+                    tag) -> dict:
+    """``build_importance_grid(..., screen_space_weight=SCREEN_WEIGHT)``
+    after the TF edit, at the default camera and at a NARROW_FOV one: the
+    grid equals base x ((1 - w) + w x vis), nowhere above base. The weight
+    never zeroes an importance, so the narrow camera's drain through
+    ``step()`` (counted) retraces the photons the unweighted drain did, in
+    another order, each under its own stream: photons equal to that
+    drain's bit for bit (so the flagged ones to the full retrace's), the
+    light volume within DRAINED_RTOL, ATOL_REL x its peak."""
+    edited = edit_tf(scene)
+    base = step.build_importance_grid(edited, config).data
+    w = SCREEN_WEIGHT
+    grids = {}
+    for what, camera in (("default camera", scene.camera),
+                         (f"{NARROW_FOV:g} degree camera",
+                          Camera.create(fov_y=NARROW_FOV))):
+        seen = dataclasses.replace(edited, camera=camera)
+        grid = step.build_importance_grid(seen, config,
+                                          screen_space_weight=w)
+        mm = minmax.volume_min_max(seen.volume,
+                                   config.recompute.grid_cell_size)
+        vis = screen_importance.cell_visibility_from_camera(mm, seen.tf,
+                                                            camera)
+        torch.testing.assert_close(grid.data, base * ((1.0 - w) + w * vis),
+                                   rtol=GRID_RTOL, atol=0.0)
+        if bool((grid.data > base).any()):
+            raise AssertionError(f"{what}: the weighted grid exceeds base")
+        print(f"screen-weighted importance grid (w {w}), {what}: equals "
+              f"base x ((1 - w) + w x vis) within rtol {GRID_RTOL}; "
+              f"{int((grid.data < base).sum())} of {int((base > 0).sum())} "
+              f"nonzero cells below base")
+        grids[what] = (seen, grid)
+    seen, grid = grids[f"{NARROW_FOV:g} degree camera"]
+    n = state.photons.n
+    budget = step.recompute_budget(config, n)
+    r = f32_scalar(config.tracer.radius_rel)
+    dim = step.light_volume_shape(config)
+    design = sp.choose_design(2 * state.photons.max_interactions * budget, r,
+                              dim)
+    flagged = int((step.recompute_importance(
+        config, grid, state.photons, state.light_samples) > 0.0).sum())
+    reset_counts()
+    (drained, first, batches), ms = timed_once(
+        lambda: drain(seen, config, state, grid))
+    launches = read_counts()
+    print(f"screen-weighted drain ({NARROW_FOV:g} degree camera, first run): "
+          f"{flagged} photons flagged, {batches} batches in {ms:.1f} ms, "
+          f"launches {launches}; unweighted: {unweighted['flagged']} flagged, "
+          f"{unweighted['batches']} batches ({tag})")
+    if batches != -(-flagged // budget) or flagged != unweighted["flagged"]:
+        raise AssertionError("the screen-weighted drain flagged other photons "
+                             "or took another number of batches")
+    expect_launches("screen-weighted drain", launches, [design] * batches)
+    ref = unweighted["drained"]
+    for f in PHOTON_FIELDS:
+        if not torch.equal(getattr(drained.photons, f),
+                           getattr(ref.photons, f)):
+            raise AssertionError(f"the screen-weighted drain's {f} differ "
+                                 "from the unweighted drain's")
+    peak = float(ref.light_volume.abs().max())
+    err = float((drained.light_volume - ref.light_volume).abs().max())
+    print(f"screen-weighted drain vs the unweighted one: photons bit-equal, "
+          f"light volume max_abs_err {err:.3e} (max |ref| {peak:.3e}); rel L1 "
+          f"to the full retrace "
+          f"{rel_l1(drained.light_volume, unweighted['full_edit'].light_volume):.3e}")
+    torch.testing.assert_close(drained.light_volume, ref.light_volume,
+                               rtol=DRAINED_RTOL, atol=ATOL_REL * peak)
+    pos, pw = batch_deposits(state, first, config)
+    on_delta, _ = check_on_list(
+        f"the {pos.shape[0]} signed delta slots of a screen-weighted "
+        "correlated step", pos, pw, r, dim, 50, tag)
+    return {"launches": launches, "batches": batches, "flagged": flagged,
+            "drain_ms": ms, "on_delta": on_delta}
+
+
+def nee_mesh(scene, state, dev, tag) -> None:
+    """At the default frame: ``nee_single_scatter`` of each light of
+    OTHER_LIGHTS at the frame's deposit positions (finite, >= 0, and zero
+    outside a cone's aperture), and the box mesh's spans of the frame's
+    light samples against the slab test's."""
+    pts = state.photons.positions[used_slots(state.photons)]
+    for what, (light, _) in OTHER_LIGHTS.items():
+        radiance, ms = timed_once(lambda: nee.nee_single_scatter(
+            light, scene.volume, scene.tf, pts, key=rng.prng_key(5),
+            n_steps=NEE_STEPS))
+        if light.type == CONE:
+            wi = nee.sample_light_toward(light, pts)[0]
+            out_of_cone = (wi * torch.tensor(light.direction, device=dev)
+                           ).sum(-1) < light.cos_fov
+            outside = int(out_of_cone.sum())
+            if bool((radiance[out_of_cone] != 0.0).any()):
+                raise AssertionError("NEE of a cone light is not zero outside "
+                                     "its aperture")
+        print(f"NEE {what}: {pts.shape[0]} points, {NEE_STEPS} steps, "
+              f"{ms:.2f} ms (first run); radiance max "
+              f"{float(radiance.max()):.4g}, mean {float(radiance.mean()):.4g}"
+              + (f", zero at the {outside} points outside the aperture"
+                 if light.type == CONE else "") + f" ({tag})")
+        if (radiance.shape != pts.shape or radiance.device != dev
+                or not bool(torch.isfinite(radiance).all())
+                or bool((radiance < 0.0).any())):
+            raise AssertionError(f"NEE {what}: not finite and >= 0")
+    ls = state.light_samples
+    verts, faces = intersect.box_mesh()
+    spans, ms = timed_once(lambda: intersect.light_sample_mesh_intersection(
+        ls.origins, ls.directions, verts, faces))
+    box = intersect.light_sample_box_intersection(ls.origins, ls.directions)
+    f = faces.long()
+    hits, _ = intersect.ray_triangles(ls.origins, ls.directions,
+                                      verts[f[:, 0]], verts[f[:, 1]],
+                                      verts[f[:, 2]])
+    edge = hits.sum(-1) > 2
+    hit_m, hit_b = spans[:, 1] >= spans[:, 0], box[:, 1] >= box[:, 0]
+    agree = float((hit_m == hit_b).float().mean())
+    both = hit_m & hit_b & ~edge
+    err = float((spans[both] - box[both]).abs().max())
+    print(f"mesh spans of {ls.n} light samples (box mesh, 12 triangles): "
+          f"{ms:.2f} ms (first run); hit sets agree on {agree:.6f}, "
+          f"{int(edge.sum())} rays through a mesh edge; spans where both hit "
+          f"off the edges: {int(both.sum())}, max_abs_err {err:.3e} ({tag})")
+    if (spans.device != dev or agree < 1.0 - MESH_EDGE_FRACTION
+            or float(edge.float().mean()) > MESH_EDGE_FRACTION):
+        raise AssertionError("the mesh and the slab test disagree on the hit "
+                             "set")
+    torch.testing.assert_close(spans[both], box[both], rtol=1e-4, atol=1e-5)
 
 
 def kernel_rows(shapes: dict, default_launches: dict,
@@ -1571,7 +2197,26 @@ def main() -> None:
     # --- the correlated update at the default frame, counted ---
     correlated = correlated_default(scene, config, state, dev, tag)
     check_small_correlated(dev)
+
+    # --- the tracer's forward options, the marcher, screen-space
+    # importance, NEE, mesh spans, counted where they splat ---
+    t_slice = time.perf_counter()
+    key = rng.fold_in(state.key, 0)
+    stats = trace_stats(
+        "the default frame",
+        lambda on: tracer.trace_photons(
+            scene.volume, scene.tf, scene.tf_scattering, state.light_samples,
+            key, config.tracer, return_stats=on),
+        config.tracer.flights_per_iteration, tag)
+    weighted = screen_weighted(scene, config, state, correlated, dev, tag)
+    del correlated["drained"], correlated["full_edit"]
+    nee_mesh(scene, state, dev, tag)
     del scene, state
+    half = float16_frames(dev, tag)
+    nss = no_single_scattering_frame(dev, tag)
+    marched = march_frame(dev, tag)
+    print(f"the tracer's options, the marcher, screen-space importance, NEE "
+          f"and the mesh spans took {time.perf_counter() - t_slice:.1f} s")
 
     # --- time-varying playback (config 4), guided emission (config 3) and
     # the other emission modes, counted ---
@@ -1600,6 +2245,12 @@ def main() -> None:
     on_frames["large correlated step's added"] = correlated_big["on_added"]
     on_frames["config 4 playback step's delta"] = playback["on_delta"]
     on_frames["config 3 guided frame"] = guided["on_frame"]
+    on_frames["float16 frame"] = half["on_frame"]
+    on_frames["float16 correlated step's delta"] = half["on_delta"]
+    on_frames["no-single-scattering frame"] = nss["on_frame"]
+    on_frames["march-rendered frame"] = marched["on_frame"]
+    on_frames["screen-weighted correlated step's delta"] = weighted[
+        "on_delta"]
     # The wrapper's threshold is held to the deposits the driven paths
     # splat: at every traced size and on every list a correlated step
     # launched, the design it chose is the faster one there, or within
@@ -1660,6 +2311,40 @@ def main() -> None:
         "stage_ms", "variance_uniform", "variance_guided", "bias",
         "tick_ms")})
     rows[-1]["other_emission_frames"] = lights
+    rows[-1]["debug_image_ms"] = guided["debug_image_ms"]
+    rows.append(delta_row(
+        "full_trace_step (float16 photons, default frame at 2 interactions)",
+        f"{half['on_frame']['deposits']} deposit slots -> 65x65x65x3",
+        half["launches"], 1, half["on_frame"]))
+    rows[-1].update({k: half[k] for k in (
+        "first_run_ms", "in_turns", "light_volume_rel_l1",
+        "overflow_at_4_interactions")})
+    rows.append(delta_row(
+        "correlated_step (float16 photons, drain after the TF edit)",
+        f"{half['on_delta']['deposits']} signed delta slots -> 65x65x65x3",
+        half["drain_launches"], half["batches"], half["on_delta"]))
+    rows[-1]["drain_ms"] = half["drain_ms"]
+    rows.append(delta_row(
+        "full_trace_step (no single scattering)",
+        f"{nss['on_frame']['deposits']} deposit slots -> 65x65x65x3",
+        nss["launches"], 1, nss["on_frame"]))
+    rows[-1].update({k: nss[k] for k in ("first_run_ms", "frame_ms")})
+    rows.append(delta_row(
+        "full_trace_step (frame rendered by the gather marcher)",
+        f"{marched['on_frame']['deposits']} deposit slots -> 65x65x65x3",
+        marched["launches"], 1, marched["on_frame"]))
+    rows[-1].update({k: marched[k] for k in (
+        "first_run_ms", "n_steps", "chunks", "dense_vs_loop_max_abs_err",
+        "oracle_max_abs_err", "in_turns", "host_waits", "eye_inside")})
+    rows.append(delta_row(
+        "correlated_step (screen-weighted grid, drain after the TF edit)",
+        f"{weighted['on_delta']['deposits']} signed delta slots -> "
+        "65x65x65x3", weighted["launches"], weighted["batches"],
+        weighted["on_delta"]))
+    rows[-1]["drain_ms"] = weighted["drain_ms"]
+    rows[0]["trace_stats"] = {"default frame": stats,
+                              "config 4 step retrace": playback[
+                                  "trace_stats"]}
     for row in rows:
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']} was launched by no driven "

@@ -2,12 +2,10 @@
 ``cpm_tpu/core/config.py`` with the same defaults (a test holds the two
 together).
 
-The port honours the fields that the forward frame (every light type,
-both sample orders, guided emission), the progressive tick and the
-correlated update use. Options whose code has not been
-ported yet raise ``NotImplementedError`` where they are read
-(``photon_dtype="float16"``, ``no_single_scattering``,
-``render.method="march"``).
+The port honours every field: the forward frame's (every light type,
+both sample orders, guided emission, ``photon_dtype="float16"``,
+``no_single_scattering``, both render methods), the progressive tick's
+and the correlated update's.
 ``use_compaction`` and ``brick_scale`` shape only the TPU form of the
 trace loop; its results do not depend on them, and the port ignores them.
 ``recompute.importance_mode="quadrature_mxu"`` (the default) names a
@@ -91,8 +89,8 @@ class RenderConfig:
     height: int = 512
     sampling_rate: float = 1.0
     ambient: float = 0.05
-    # "sweep" -> shear-warp renderer (ops/sweep_render.py); "march" is not
-    # ported yet.
+    # "sweep" -> shear-warp renderer (ops/sweep_render.py); "march" -> the
+    # gather marcher (ops/gather.py).
     method: str = "sweep"
     inter_scale: float = 1.5  # intermediate-image oversampling
 

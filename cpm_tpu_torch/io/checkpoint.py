@@ -75,7 +75,8 @@ def save_checkpoint(path: str, state: PhotonMapState,
 
 def load_checkpoint(path: str, device=None):
     """Read (state, config) back; the state's tensors land on the card
-    unless ``device`` names another."""
+    unless ``device`` names another, and the photon fields keep their
+    saved float type (float16 storage loads as float16)."""
     with np.load(_normalize(path)) as z:
         header = json.loads(bytes(z[_HEADER_KEY].tobytes()).decode())
         if header["version"] != _FORMAT_VERSION:

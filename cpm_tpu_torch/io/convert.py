@@ -24,10 +24,14 @@ _PHOTON_ARRAYS = ("positions", "powers", "directions", "exit_power",
 _SAMPLE_ARRAYS = ("origins", "directions", "powers", "tspan")
 
 
-def _tensor(a, device) -> torch.Tensor:
+def _tensor(a, device, keep_float: bool = False) -> torch.Tensor:
+    """A numpy leaf as a tensor on ``device``: floats become float32
+    unless ``keep_float`` keeps their saved type (photon fields, which may
+    be stored in float16)."""
     a = np.asarray(a)
-    a = np.array(a, dtype=np.float32 if a.dtype.kind == "f" else a.dtype,
-                 order="C", copy=True)
+    float32 = a.dtype.kind == "f" and not keep_float
+    a = np.array(a, dtype=np.float32 if float32 else a.dtype, order="C",
+                 copy=True)
     return torch.from_numpy(a).to(device)
 
 
@@ -57,10 +61,13 @@ def scene_from_numpy(leaves: dict, lights, device=None) -> Scene:
 
 def state_from_numpy(leaves: dict, device=None) -> PhotonMapState:
     """The port's PhotonMapState from the reference state's arrays, on the
-    card unless ``device`` names another."""
+    card unless ``device`` names another. Photon fields keep their float
+    type (float16 storage stays float16); every other float leaf is
+    float32."""
     device = resolve(device)
     photons = PhotonData(
-        **{f: _tensor(leaves[f"photons.{f}"], device) for f in _PHOTON_ARRAYS},
+        **{f: _tensor(leaves[f"photons.{f}"], device, keep_float=True)
+           for f in _PHOTON_ARRAYS},
         radius_rel=float(np.float32(leaves["photons.radius_rel"])),
         scene_radius=float(np.float32(leaves["photons.scene_radius"])),
         iteration=int(leaves["photons.iteration"]))

@@ -12,7 +12,10 @@ its values are the gather quadrature's. Here the mode name selects the
 gather quadrature, and no one-hot form exists.
 
 A never-interacting photon's segment ends at ``origin + tEnd *
-direction``, as the reference has it.
+direction``, as the reference has it. Float16 photons are widened to
+float32 before the sentinel test; the reference tests them in float16,
+where ``+inf > 1e30`` is false, so there an unused slot reads as a deposit
+at infinity and the photon's importance becomes inf or NaN.
 """
 
 from __future__ import annotations
@@ -128,8 +131,12 @@ def photon_path_importance(importance_grid: UniformGrid3D,
 
     entries, exits, seg_valid = [], [], []
     alive = t0 < t1
+    # Float16 photons are widened first: in float16 the 1e30 sentinel test
+    # below would compare against +inf and read every unused slot as a
+    # deposit, and torch keeps float16 where it meets a float32 scalar.
+    positions = photons.positions.to(torch.float32)
     for i in range(i_max):
-        pos_i = photons.positions[i]  # (N, 3)
+        pos_i = positions[i]  # (N, 3)
         is_sentinel = pos_i[:, 0] > big
         if i == 0:
             # Never interacted: the segment spans the whole ray.

@@ -1,7 +1,8 @@
 """Volume sampling, the stratified sample grid, its Hilbert order and the
 guided-emission warp (``cpm_tpu/ops/sampling.py``: ``stratified_grid_2d``
 :248-267, ``hilbert_index_2d`` :270-292, ``warp_samples_2d`` :295-348,
-``sample_volume_trilinear`` :54-74).
+``sample_volume_trilinear`` :54-74, ``sample_volume_trilinear_vec``
+:77-100).
 
 On a GPU a trilinear fetch is eight plain gathers; the reference's packed
 brick rows exist only because a TPU gather costs per index.
@@ -48,18 +49,19 @@ def voxel_coords(shape_zyx, pos: Tensor) -> Tensor:
                        max=dims - 1.0)
 
 
-def sample_volume_trilinear(data: Tensor, pos: Tensor) -> Tensor:
-    """Trilinear fetch from a (D, H, W) volume at texture coordinates
-    (..., 3) = (x, y, z); voxel centres at (i+0.5)/dim, edge-clamped."""
-    d, h, w = data.shape
-    cf = voxel_coords((d, h, w), pos)
+def _trilinear(flat: Tensor, shape_zyx, pos: Tensor) -> Tensor:
+    """The weighted sum of the eight edge-clamped corner entries of
+    ``flat`` (in z, y, x order) around each position: (...,) from a scalar
+    table, (..., C) from rows of C."""
+    d, h, w = shape_zyx
+    cf = voxel_coords(shape_zyx, pos)
     c0f = torch.floor(cf)
     frac = cf - c0f
     c0 = c0f.to(torch.int64)
     c1 = torch.minimum(c0 + 1, torch.tensor([w - 1, h - 1, d - 1],
                                             device=pos.device))
-    flat = data.reshape(-1)
-    acc = torch.zeros(pos.shape[:-1], dtype=torch.float32, device=pos.device)
+    rows = flat.dim() == 2
+    acc = 0.0
     for dz, cz in ((0, c0[..., 2]), (1, c1[..., 2])):
         wz = frac[..., 2] if dz else 1.0 - frac[..., 2]
         for dy, cy in ((0, c0[..., 1]), (1, c1[..., 1])):
@@ -67,8 +69,23 @@ def sample_volume_trilinear(data: Tensor, pos: Tensor) -> Tensor:
             base = (cz * h + cy) * w
             for dx, cx in ((0, c0[..., 0]), (1, c1[..., 0])):
                 wx = frac[..., 0] if dx else 1.0 - frac[..., 0]
-                acc = acc + flat[base + cx] * (wx * wy * wz)
+                wgt = wx * wy * wz
+                acc = acc + flat[base + cx] * (wgt[..., None] if rows
+                                               else wgt)
     return acc
+
+
+def sample_volume_trilinear(data: Tensor, pos: Tensor) -> Tensor:
+    """Trilinear fetch from a (D, H, W) volume at texture coordinates
+    (..., 3) = (x, y, z); voxel centres at (i+0.5)/dim, edge-clamped."""
+    return _trilinear(data.reshape(-1), data.shape, pos)
+
+
+def sample_volume_trilinear_vec(data: Tensor, pos: Tensor) -> Tensor:
+    """Trilinear fetch from a (D, H, W, C) volume (the light volume) at
+    texture coordinates (..., 3); returns (..., C). Each corner is one
+    gather of whole C-channel rows."""
+    return _trilinear(data.reshape(-1, data.shape[3]), data.shape[:3], pos)
 
 
 def hilbert_index_2d(u: Tensor, v: Tensor, order: int = 8) -> Tensor:

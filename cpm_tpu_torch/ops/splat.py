@@ -104,22 +104,23 @@ def _irradiance_scale(photons: PhotonData, multiplier: float = 1.0) -> float:
 
 def _flatten(photons: PhotonData):
     """(positions (M, 3), powers (M, 3), valid (M,), irradiance scale) of
-    every stored photon, interaction-major."""
+    every stored photon, interaction-major, in float32 whatever the
+    photons' storage type (a float16 sentinel is +inf)."""
     i, n, _ = photons.positions.shape
-    pos = photons.positions.reshape(i * n, 3)
-    pow_ = photons.powers.reshape(i * n, 3)
+    pos = photons.positions.reshape(i * n, 3).to(torch.float32)
+    pow_ = photons.powers.reshape(i * n, 3).to(torch.float32)
     return pos, pow_, pos[:, 0] < 1e30, _irradiance_scale(photons)
 
 
 def _flatten_selected(photons: PhotonData, indices: Tensor, valid: Tensor):
     """(positions (I*B, 3), powers (I*B, 3), valid (I*B,)) of the photons
-    whose light-sample ids are ``indices``. A padding lane (``valid`` False)
-    reads photon 0 and is masked out."""
+    whose light-sample ids are ``indices``, in float32. A padding lane
+    (``valid`` False) reads photon 0 and is masked out."""
     i = photons.max_interactions
     b = indices.shape[0]
     safe = torch.where(valid, indices, 0)
-    pos = photons.positions[:, safe].reshape(i * b, 3)
-    pow_ = photons.powers[:, safe].reshape(i * b, 3)
+    pos = photons.positions[:, safe].reshape(i * b, 3).to(torch.float32)
+    pow_ = photons.powers[:, safe].reshape(i * b, 3).to(torch.float32)
     lane_valid = valid[None, :].expand(i, b).reshape(i * b)
     return pos, pow_, lane_valid & (pos[:, 0] < 1e30)
 

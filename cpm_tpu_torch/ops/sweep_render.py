@@ -10,7 +10,8 @@ to the screen with one bilinear resample.
 The hat-matrix products are plain ``torch.matmul``/``einsum`` in full
 float32 (TF32 off); the reference's ``BF16_BF16_F32_X3`` passes are
 likewise fp32-accurate. An eye inside the volume's slab range renders two
-sweeps, one per marching sign, and sums them.
+sweeps, one per marching sign, and sums them. :func:`march_zplanes_oracle`
+is the sweep's exact oracle: a per-ray march over the same planes.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from cpm_tpu_torch.core.camera import Camera
 from cpm_tpu_torch.core.config import RenderConfig
 from cpm_tpu_torch.core.types import (TransferFunction, Volume,
                                       full_fp32_matmul)
+from cpm_tpu_torch.ops.sampling import (sample_volume_trilinear,
+                                        sample_volume_trilinear_vec)
 
 Tensor = torch.Tensor
 
@@ -297,3 +300,35 @@ def sweep_render(volume: Volume, tf: TransferFunction, light_volume: Tensor,
     if return_intermediate:
         return img, inter, grid
     return img
+
+
+def march_zplanes_oracle(volume: Volume, tf: TransferFunction,
+                         light_volume: Tensor, o: Tensor, d: Tensor,
+                         za: Tensor, axis: int, ambient: float) -> Tensor:
+    """Per-ray march over the sweep's own plane quadrature, with gathers:
+    rays (N, 3) meet the planes ``za`` (in marching order) perpendicular
+    to ``axis``, and each sample goes through the same trilinear fetch, TF
+    and compositing as the sweep. The sweep's intermediate image must
+    equal it (``cpm_tpu/ops/sweep_render.py:398-434``). Returns (N, 4)."""
+    sbi = constants.SAMPLING_BASE_INTERVAL_RCP
+    dz = 1.0 / za.shape[0]
+    d_a = d[:, axis]
+    sec = torch.linalg.vector_norm(d, dim=-1) / torch.clamp(
+        torch.abs(d_a), min=1e-12)
+    b_axis, c_axis, _ = _axis_perm(axis)
+    n = o.shape[0]
+    rgb = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
+    trans = torch.ones(n, dtype=torch.float32, device=o.device)
+    for k in range(za.shape[0]):
+        t = (za[k] - o[:, axis]) / d_a
+        p = o + t[:, None] * d
+        inside = ((t > 0) & (p[:, b_axis] >= 0.0) & (p[:, b_axis] <= 1.0)
+                  & (p[:, c_axis] >= 0.0) & (p[:, c_axis] <= 1.0))
+        rgba = tf.sample(sample_volume_trilinear(volume.data, p))
+        light = sample_volume_trilinear_vec(light_volume, p)
+        tau = rgba[:, 3] * sbi * dz * sec * inside.to(torch.float32)
+        seg_t = torch.exp(-tau)
+        emit = rgba[:, :3] * (light + ambient)
+        rgb = rgb + (trans * (1.0 - seg_t))[:, None] * emit
+        trans = trans * seg_t
+    return torch.cat([rgb, (1.0 - trans)[:, None]], dim=-1)

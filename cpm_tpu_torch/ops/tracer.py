@@ -17,6 +17,15 @@ out: the volume is sampled with direct trilinear gathers, and the
 majorant and skip distance a lane carries are read at the same voxel
 quantization as the brick column, ``grid[floor(clip(p*dim - 0.5)) //
 cell_size]``.
+
+Options (``TracerConfig``): ``no_single_scattering`` turns each lane's
+first collision into a scatter without a deposit (power divided by the
+phase pdf, no albedo test), so only multiple scattering is stored;
+``photon_dtype="float16"`` casts the three deposit fields at the end (the
+trace itself runs in float32; FLT_MAX becomes +inf, which every
+consumer's ``< 1e30`` test still reads as unused). ``return_stats`` adds
+the wavefront counters; ``record_events`` (the gradients' event tape) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -40,21 +49,7 @@ Tensor = torch.Tensor
 # a voxel.
 _BOUNDARY_EPS = 1e-5
 
-
-def _check_supported(config: TracerConfig, return_stats: bool,
-                     record_events: int) -> None:
-    missing = []
-    if return_stats:
-        missing.append("return_stats")
-    if record_events:
-        missing.append("record_events")
-    if config.no_single_scattering:
-        missing.append("no_single_scattering")
-    if config.photon_dtype != "float32":
-        missing.append(f"photon_dtype={config.photon_dtype!r}")
-    if missing:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(missing))
+_HISTORY = 512  # active-count history slots when return_stats is on
 
 
 def majorant_grids(volume: Volume, tf: TransferFunction,
@@ -79,7 +74,7 @@ def trace_photons(volume: Volume, tf: TransferFunction,
                   light_samples: LightSamples, base_key: tuple,
                   config: TracerConfig, lane_ids: Tensor | None = None,
                   return_stats: bool = False, record_events: int = 0,
-                  grids: tuple | None = None) -> PhotonData:
+                  grids: tuple | None = None):
     """Trace all light samples; returns a fresh PhotonData (radius fields
     default-initialized, the pipeline owns the progressive state).
 
@@ -88,8 +83,16 @@ def trace_photons(volume: Volume, tf: TransferFunction,
     by default: a retrace of a selected subset passes the original ids, so
     every photon keeps its stream. ``grids`` takes the result of
     :func:`majorant_grids` where one build serves several calls.
+
+    With ``return_stats`` the return is (photons, stats): ``wavefront_iters``
+    (int, flights per lane slot, counted per flight), ``mean_active_frac``
+    (() tensor, active lanes summed over flights / (max(iters, 1) * N)),
+    ``active_history`` ((512,) int32 tensor, flight i's active count at
+    min(i, 511)) and ``stage_widths`` ([N]: this loop never compacts).
+    The counters stay on the device; collecting them adds no host wait.
     """
-    _check_supported(config, return_stats, record_events)
+    if record_events:
+        raise NotImplementedError("not ported yet: record_events")
     dev = volume.device
     n = light_samples.n
     max_i = config.max_interactions
@@ -143,6 +146,11 @@ def trace_photons(volume: Volume, tf: TransferFunction,
     n_int = torch.zeros(n, dtype=torch.int64, device=dev)
     active = t < t_end
     absorbed = torch.zeros(n, dtype=torch.bool, device=dev)
+    nss = config.no_single_scattering
+    if nss:
+        # Lanes whose first collision is still to come scatter it
+        # without a deposit.
+        first_done = torch.zeros(n, dtype=torch.bool, device=dev)
     maj_carry = maj_global.expand(n)
     dist_carry = torch.zeros(n, dtype=torch.float32, device=dev)
     out_pos = torch.full((n, max_i, 3), big, dtype=torch.float32, device=dev)
@@ -150,10 +158,18 @@ def trace_photons(volume: Volume, tf: TransferFunction,
     out_dir = torch.zeros((n, max_i, 2), dtype=torch.float32, device=dev)
     col_ids = torch.arange(max_i, device=dev)[None, :]  # (1, I)
 
+    if return_stats:
+        active_work = torch.zeros((), dtype=torch.float32, device=dev)
+        active_hist = torch.zeros(_HISTORY, dtype=torch.int32, device=dev)
+
     step = 0
     k_unroll = max(1, config.flights_per_iteration)
     while step < config.max_steps and bool(active.any()):
         for _ in range(k_unroll):
+            if return_stats:
+                n_active = active.sum(dtype=torch.int32)
+                active_work += n_active
+                active_hist.select(0, min(step, _HISTORY - 1)).add_(n_active)
             u = rng.uniforms(k0, k1, lane_ids, step, 5)
             # --- macrocell delta-tracking step ---
             p_cur = pos + t[:, None] * dir_
@@ -181,7 +197,12 @@ def trace_photons(volume: Volume, tf: TransferFunction,
             opacity = tf.sample_opacity(vol_sample)
             # Acceptance against the local majorant: P = sigma / sigma_maj.
             accept = u[:, 1] * maj_op < opacity
-            interact = active & ~exited & ~skip & accept
+            collide = active & ~exited & ~skip & accept
+            if nss:
+                first_event = collide & ~first_done
+                interact = collide & first_done
+            else:
+                interact = collide
 
             # --- interaction (photontracer.cl:158-197) ---
             scat_w = tf_scattering.sample_opacity(vol_sample)
@@ -203,39 +224,56 @@ def trace_photons(volume: Volume, tf: TransferFunction,
                                   out_dir)
 
             # --- new direction for scattered photons ---
-            new_dir, _ = phase_mod.sample_phase(
+            new_dir, pdf = phase_mod.sample_phase(
                 config.phase_type, dir_, phase_g, u[:, 3], u[:, 4])
             hit, bt0, bt1 = intersect.ray_box(p, new_dir, clip_lo, clip_hi)
-            still_active = active & ~exited & (~interact | (do_scatter & hit))
+            change_dir = do_scatter | first_event if nss else do_scatter
+            still_active = active & ~exited & (~collide | (change_dir & hit))
 
-            pos = torch.where(do_scatter[:, None], p, pos)
-            dir_ = torch.where(do_scatter[:, None], new_dir, dir_)
+            pos = torch.where(change_dir[:, None], p, pos)
             # Nudge past the interaction point (photontracer.cl:181-183).
-            t = torch.where(do_scatter, bt0 + 0.5 * step_size,
+            t = torch.where(change_dir, bt0 + 0.5 * step_size,
                             torch.where(interact, t, t_new))
-            t_end = torch.where(do_scatter, bt1, t_end)
-            power = torch.where(
+            t_end = torch.where(change_dir, bt1, t_end)
+            new_power = torch.where(
                 interact[:, None],
                 torch.where(do_scatter[:, None], power_scat, big), power)
+            if nss:
+                new_power = torch.where(
+                    first_event[:, None],
+                    power / torch.clamp(pdf, min=1e-8)[:, None], new_power)
+                first_done = first_done | first_event
+            dir_ = torch.where(change_dir[:, None], new_dir, dir_)
+            power = new_power
             n_int = torch.where(interact, n_int_new, n_int)
             active = still_active
             absorbed = absorbed | do_absorb
             # After a direction change the next segment may start in
             # another cell: carry the global majorant for one step.
-            maj_carry = torch.where(do_scatter, maj_global, maj_at_p)
-            dist_carry = torch.where(do_scatter, 0.0, dist_at_p)
+            maj_carry = torch.where(change_dir, maj_global, maj_at_p)
+            dist_carry = torch.where(change_dir, 0.0, dist_at_p)
             step += 1
 
-    return PhotonData(
-        positions=out_pos.transpose(0, 1).contiguous(),
-        powers=out_pow.transpose(0, 1).contiguous(),
-        directions=out_dir.transpose(0, 1).contiguous(),
+    # Half storage (photon.cl:49-63): the FLT_MAX sentinel becomes +inf.
+    dt = getattr(torch, config.photon_dtype)
+    photons = PhotonData(
+        positions=out_pos.transpose(0, 1).to(dt).contiguous(),
+        powers=out_pow.transpose(0, 1).to(dt).contiguous(),
+        directions=out_dir.transpose(0, 1).to(dt).contiguous(),
         exit_power=torch.where(absorbed, big, power[:, 0]),
         exit_direction=encode_direction(dir_),
         radius_rel=f32_scalar(config.radius_rel),
         scene_radius=f32_scalar(constants.DEFAULT_SCENE_RADIUS),
         iteration=0,
     )
+    if not return_stats:
+        return photons
+    return photons, {
+        "wavefront_iters": step,
+        "mean_active_frac": active_work / float(max(step, 1) * n),
+        "active_history": active_hist,
+        "stage_widths": [n],
+    }
 
 
 def trace_photons_chunked(volume: Volume, tf: TransferFunction,

@@ -3,7 +3,8 @@ function over (Scene, PhotonMapState), and :func:`step` dispatches on
 :class:`~cpm_tpu_torch.pipeline.state.DirtyFlags`.
 
 - :func:`init_state`, :func:`full_trace_step`, :func:`render_state`: the
-  forward frame (trace all photons, full splat, sweep render).
+  forward frame (trace all photons, full splat, sweep render, or the
+  gather marcher with ``render.method="march"``).
 - :func:`correlated_step`: importance-ranked selective retrace and the
   incremental -1/+1 resplat; :func:`correlated_step_scalable` is the same
   update with two splats (removed, added) in place of the signed one.
@@ -35,8 +36,9 @@ from cpm_tpu_torch.core.types import (LightSamples, PhotonData,
                                       progressive_sphere_radius)
 from cpm_tpu_torch.ops import emit as emit_mod
 from cpm_tpu_torch.ops import importance as importance_mod
-from cpm_tpu_torch.ops import (minmax, path_importance, rng, sampling, select,
-                               splat, sweep_render, tracer)
+from cpm_tpu_torch.ops import (gather, minmax, path_importance, rng, sampling,
+                               screen_importance, select, splat, sweep_render,
+                               tracer)
 from cpm_tpu_torch.pipeline.state import DirtyFlags, PhotonMapState
 
 Tensor = torch.Tensor
@@ -405,10 +407,9 @@ def build_importance_grid(scene: Scene, config: PipelineConfig,
                           screen_space_weight: float = 0.0) -> UniformGrid3D:
     """min/max grid -> TF-classified importance grid. With ``prev_minmax``
     and ``volume_diff`` from the previous time step it is the time-varying
-    importance instead. The camera-visibility term
-    (``screen_space_weight`` > 0) is not ported yet."""
-    if screen_space_weight > 0.0:
-        raise NotImplementedError("screen_space_weight is not ported yet")
+    importance instead. ``screen_space_weight`` w in (0, 1] mixes in the
+    camera-visibility term: the importance times (1 - w) + w * vis, so
+    cells no camera ray crosses are downweighted by 1 - w."""
     if weights is None:
         weights = importance_mod.ImportanceWeights()
     w = weights.normalized()
@@ -420,6 +421,11 @@ def build_importance_grid(scene: Scene, config: PipelineConfig,
     else:
         imp = importance_mod.classify_importance(
             mm.data, scene.tf.positions, scene.tf.colors, w)
+    if screen_space_weight > 0.0:
+        vis = screen_importance.cell_visibility_from_camera(
+            mm, scene.tf, scene.camera)
+        imp = imp * ((1.0 - screen_space_weight)
+                     + screen_space_weight * vis)
     return dataclasses.replace(mm, data=imp)
 
 
@@ -449,13 +455,18 @@ def build_tf_change_importance_grid(scene: Scene, config: PipelineConfig,
 def render_state(scene: Scene, state: PhotonMapState,
                  config: PipelineConfig) -> Tensor:
     """Composite the progressive light volume into an (H, W, 4) image with
-    the sweep renderer."""
-    if config.render.method != "sweep":
-        raise NotImplementedError(
-            f"render method {config.render.method!r} is not ported yet")
-    return sweep_render.sweep_render(
-        scene.volume, scene.tf, state.light_volume_accum, scene.camera,
-        config.render)
+    the sweep renderer (``render.method="sweep"``, the default) or the
+    gather marcher (``"march"``), the sweep's physics oracle, which renders
+    any camera."""
+    if config.render.method == "sweep":
+        return sweep_render.sweep_render(
+            scene.volume, scene.tf, state.light_volume_accum, scene.camera,
+            config.render)
+    if config.render.method == "march":
+        return gather.render(scene.volume, scene.tf,
+                             state.light_volume_accum, scene.camera,
+                             config.render)
+    raise ValueError(f"unknown render method {config.render.method!r}")
 
 
 def step(scene: Scene, state: PhotonMapState, config: PipelineConfig,

@@ -171,3 +171,48 @@ def test_mismatched_checkpoint_raises(both, tmp_path, changes):
     _rewrite_header(path, **changes)
     with pytest.raises(ValueError):
         tcheckpoint.load_checkpoint(path, device="cpu")
+
+
+def _half(jstate):
+    """The reference state with float16 photon storage, as a trace with
+    ``photon_dtype="float16"`` leaves it (unused slots +inf)."""
+    ph = jstate.photons
+    return jstate.replace(photons=ph.replace(
+        positions=ph.positions.astype(jnp.float16),
+        powers=ph.powers.astype(jnp.float16),
+        directions=ph.directions.astype(jnp.float16)))
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_float16_photons_keep_their_dtype(both, tmp_path, writer):
+    """A float16 photon state crosses between the packages, either way,
+    through a checkpoint and through ``convert``, with its dtype: the
+    three deposit fields stay float16 (+inf sentinels included), every
+    other leaf as it was."""
+    _, jcfg, jstate, _, tcfg = both
+    jcfg = dataclasses.replace(jcfg, tracer=dataclasses.replace(
+        jcfg.tracer, photon_dtype="float16"))
+    tcfg = dataclasses.replace(tcfg, tracer=dataclasses.replace(
+        tcfg.tracer, photon_dtype="float16"))
+    jhalf = _half(jstate)
+    want = leaves_of(jhalf)
+    assert np.isinf(want["photons.positions"]).any()
+    tstate = convert.state_from_numpy(want, device="cpu")
+    for f in ("positions", "powers", "directions"):
+        assert getattr(tstate.photons, f).dtype == torch.float16, f
+    assert tstate.photons.exit_power.dtype == torch.float32
+    path = str(tmp_path / "half")
+    if writer == "reference":
+        jcheckpoint.save_checkpoint(path, jhalf, jcfg)
+        state, config = tcheckpoint.load_checkpoint(path, device="cpu")
+        assert config.tracer.photon_dtype == "float16"
+        got = convert.state_to_numpy(state)
+    else:
+        tcheckpoint.save_checkpoint(path, tstate, tcfg)
+        state, config = jcheckpoint.load_checkpoint(path + ".npz")
+        assert config.tracer.photon_dtype == "float16"
+        got = leaves_of(state)
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        np.testing.assert_array_equal(got[k], w, err_msg=k)

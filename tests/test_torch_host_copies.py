@@ -1,8 +1,9 @@
 """The port's own copies of the reference's numpy-only host modules
-(constants, lights, lightplane, synthetic) and of the numpy function
+(constants, lights, lightplane, synthetic, u3d) and of the numpy function
 ``importance.tf_difference_points`` held against the originals so they
-cannot drift, and the port's default device: tensors are made on the
-CUDA card unless the caller names another device."""
+cannot drift (files either copy of u3d writes are read back equal by the
+other), and the port's default device: tensors are made on the CUDA card
+unless the caller names another device."""
 
 import dataclasses
 import inspect
@@ -16,6 +17,7 @@ import torch
 from cpm_tpu.core import constants as jconstants
 from cpm_tpu.core import lights as jlights
 from cpm_tpu.io import synthetic as jsynthetic
+from cpm_tpu.io import u3d as ju3d
 from cpm_tpu.ops import importance as jimportance
 from cpm_tpu.ops import lightplane as jlightplane
 from cpm_tpu_torch.core import camera as tcamera
@@ -25,7 +27,9 @@ from cpm_tpu_torch.core import lights as tlights
 from cpm_tpu_torch.core import types as ttypes
 from cpm_tpu_torch.io import convert
 from cpm_tpu_torch.io import synthetic as tsynthetic
+from cpm_tpu_torch.io import u3d as tu3d
 from cpm_tpu_torch.ops import importance as timportance
+from cpm_tpu_torch.ops import intersect as tintersect
 from cpm_tpu_torch.ops import lightplane as tlightplane
 from cpm_tpu_torch.ops import rng as trng
 from cpm_tpu_torch.ops import sampling as tsampling
@@ -34,7 +38,7 @@ from cpm_tpu_torch.pipeline import timevarying as ttimevarying
 TESTS = Path(__file__).resolve().parent
 PAIRS = {"constants": (jconstants, tconstants), "lights": (jlights, tlights),
          "lightplane": (jlightplane, tlightplane),
-         "synthetic": (jsynthetic, tsynthetic)}
+         "synthetic": (jsynthetic, tsynthetic), "u3d": (ju3d, tu3d)}
 
 
 def _public(module, kind):
@@ -159,6 +163,66 @@ def test_copied_tf_difference_points_is_bit_equal(case):
     assert (got[1].max() > 0.0) == (case in ("edit", "other_points"))
 
 
+# Each case of tests/test_io.py: (writer, data, keyword arguments).
+U3D_CASES = {
+    "scalar_sequence": ("write_u3d", lambda rs: rs.random(
+        (4, 5, 6, 7)).astype(np.float32), dict(cell_dimensions=(8, 8, 8))),
+    "minmax_vec2": ("write_u3d", lambda rs: rs.integers(
+        0, 65535, (2, 3, 4, 5, 2)).astype(np.uint16),
+        dict(cell_dimensions=(4, 4, 4))),
+    "matrices": ("write_u3d", lambda rs: np.zeros((1, 2, 2, 2), np.float32),
+                 dict(model_matrix=np.arange(16, dtype=np.float32).reshape(
+                     4, 4), world_matrix=np.eye(4, dtype=np.float32) * 2)),
+    "single_grid": ("write_u3d", lambda rs: rs.random(
+        (3, 4, 5)).astype(np.float64), {}),
+    "vec4": ("write_u3d", lambda rs: rs.random(
+        (1, 2, 3, 4, 4)).astype(np.float32), {}),
+    "dat_float": ("write_dat_volume", lambda rs: rs.random(
+        (8, 9, 10)).astype(np.float32), {}),
+    "dat_uint8": ("write_dat_volume", lambda rs: np.arange(
+        8, dtype=np.uint8).reshape(2, 2, 2) * 32, {}),
+    "dat_basis_offset": ("write_dat_volume", lambda rs: np.zeros(
+        (2, 2, 2), np.float32), dict(
+            basis=np.diag([1.0, 2.0, 3.0]).astype(np.float32),
+            offset=np.array([-0.5, -1.0, -1.5], np.float32))),
+}
+
+
+@pytest.mark.parametrize("writer_is_port", [True, False])
+@pytest.mark.parametrize("case", sorted(U3D_CASES))
+def test_u3d_files_cross_between_the_copies(tmp_path, case, writer_is_port):
+    """A file one copy writes, the other reads back equal, and as the
+    writer's own reader does; both copies write the same bytes."""
+    fn, make, kw = U3D_CASES[case]
+    data = make(np.random.default_rng(0))
+    writer, reader = (tu3d, ju3d) if writer_is_port else (ju3d, tu3d)
+    ext = ".dat" if fn == "write_dat_volume" else ".u3d"
+    path = str(tmp_path / f"a{ext}")
+    getattr(writer, fn)(path, data, **kw)
+    other = str(tmp_path / f"b{ext}")
+    getattr(reader, fn)(other, data, **kw)
+    for suffix in (ext, ".raw"):
+        with open(path[:-4] + suffix, "rb") as f, \
+                open(other[:-4] + suffix, "rb") as g:
+            assert f.read().replace(b"a.raw", b"b.raw") == g.read(), suffix
+    read = "read_dat_volume" if fn == "write_dat_volume" else "read_u3d"
+    got, want = getattr(reader, read)(path), getattr(writer, read)(path)
+    if read == "read_u3d":
+        want_data = data[None] if data.ndim == 3 else data
+        np.testing.assert_array_equal(got.data, want_data)
+        assert got.cell_dimensions == want.cell_dimensions
+        for m in ("model_matrix", "world_matrix"):
+            np.testing.assert_array_equal(getattr(got, m), getattr(want, m))
+            if m in kw:
+                np.testing.assert_allclose(getattr(got, m), kw[m])
+    else:
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(got[0], data.astype(np.float32) / (
+            255.0 if data.dtype == np.uint8 else 1.0), atol=1.0 / 65535)
+
+
 # --- the default device -------------------------------------------------
 
 
@@ -185,6 +249,7 @@ CONSTRUCTORS = {
     "VolumeSequence.prepare": (
         ttimevarying, lambda **kw: ttimevarying.VolumeSequence.prepare(
             np.zeros((2, 8, 8, 8), np.float32), **kw).volumes),
+    "box_mesh": (tintersect, lambda **kw: tintersect.box_mesh(**kw)[0]),
 }
 
 
@@ -239,10 +304,10 @@ def test_converters_without_a_device_ask_for_the_card(monkeypatch):
 
 
 CALL = re.compile(
-    r"\b(?:t\w*|sampling|convert)\.(?:Volume\.from_data|"
+    r"\b(?:t\w*|sampling|convert|intersect|rng)\.(?:Volume\.from_data|"
     r"TransferFunction\.from_points|PhotonData\.create|Camera\.create|"
     r"stratified_grid_2d|scene_from_numpy|state_from_numpy|uniform|"
-    r"VolumeSequence\.prepare)\(")
+    r"VolumeSequence\.prepare|box_mesh)\(")
 
 
 def _call_text(src: str, start: int) -> str:

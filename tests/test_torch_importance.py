@@ -197,9 +197,20 @@ def test_build_importance_grid_time_varying_matches():
 
 
 def test_screen_space_weight_is_not_ported(sphere):
-    with pytest.raises(NotImplementedError):
-        tstep.build_importance_grid(sphere[1], PipelineConfig(),
-                                    screen_space_weight=0.5)
+    """The camera-visibility term at the default camera, whose rays cross
+    every visible cell of the sphere's grid: the weighted grid equals the
+    unweighted one and the reference's weighted grid
+    (tests/test_torch_screen_importance.py holds a camera that sees a
+    corner)."""
+    js, ts = sphere
+    want = jstep.build_importance_grid(js, JPipelineConfig(),
+                                       screen_space_weight=0.5)
+    got = tstep.build_importance_grid(ts, PipelineConfig(),
+                                      screen_space_weight=0.5)
+    assert float(got.data.max()) > 0.0
+    _grid_close(got, want)
+    assert torch.equal(got.data, tstep.build_importance_grid(
+        ts, PipelineConfig()).data)
 
 
 def test_tf_change_importance_grid_matches_and_localizes(sphere):

@@ -169,41 +169,17 @@ def test_radial_splat_and_sweep_match_float64_oracle(frame):
     assert err.mean() < IMAGE_MEAN_ERR, err.mean()
 
 
-@pytest.mark.parametrize("what", ["march", "screen_space", "float16",
-                                  "no_single_scattering"])
-def test_unported_paths_raise(frame, what):
-    _, state0, _, _, tscene, _ = frame
-    small = dict(photons_x=4, photons_y=4)
-    tracer = dict(max_interactions=1, max_steps=50)
-    if what == "march":
-        cfg = PipelineConfig(render=RenderConfig(method="march"),
-                             tracer=TracerConfig(**tracer), **small)
-        state = tstep.init_state(tscene, cfg)
-        with pytest.raises(NotImplementedError):
-            tstep.render_state(tscene, state, cfg)
-        return
-    if what == "screen_space":
-        with pytest.raises(NotImplementedError):
-            tstep.build_importance_grid(
-                tscene, PipelineConfig(tracer=TracerConfig(**tracer), **small),
-                screen_space_weight=0.25)
-        return
-    extra = ({"photon_dtype": "float16"} if what == "float16"
-             else {"no_single_scattering": True})
-    cfg = PipelineConfig(tracer=TracerConfig(**tracer, **extra), **small)
-    with pytest.raises(NotImplementedError):
-        tstep.full_trace_step(tscene, tstep.init_state(tscene, cfg), cfg)
-
-
 def test_port_needs_no_jax():
     """With jax, jaxlib, flax and the reference package cpm_tpu all made
     unimportable, the port (time-varying playback included) and chip_smoke
     import, a 16^3 volume / 16^2 photon / 16^2 pixel frame runs on the
     CPU, asked for by name, and so do a correlated step through ``step()``
     with a checkpoint round trip before it, one ``advance_time`` of a
-    16^3 x 3 sequence and a guided ``init_state`` with an area light
-    beside the directional one; no module of any of them is loaded
-    afterwards."""
+    16^3 x 3 sequence, a guided ``init_state`` with an area light beside
+    the directional one, a marched render, a screen-weighted importance
+    grid, a float16 frame, a trace without single scattering, NEE, the mesh
+    spans, the debug image and a u3d file; no module of any of them is
+    loaded afterwards."""
     script = textwrap.dedent("""
         import sys
         blocked = ("jax", "jaxlib", "flax", "cpm_tpu")
@@ -265,6 +241,44 @@ def test_port_needs_no_jax():
                                   ).light_samples
         assert samples.n == 2 * 16 * 16
         assert bool(torch.isfinite(samples.powers).all())
+
+        from cpm_tpu_torch.io import u3d
+        from cpm_tpu_torch.ops import debug, intersect, nee
+        march = dataclasses.replace(config, render=dataclasses.replace(
+            config.render, method="march"))
+        img = step.render_state(scene, state, march)
+        assert tuple(img.shape) == (16, 16, 4)
+        assert bool(torch.isfinite(img).all())
+        mixed = step.build_importance_grid(scene, config,
+                                           screen_space_weight=0.5)
+        assert bool((mixed.data <= grid.data + 1e-6).all())
+        half = dataclasses.replace(config, tracer=dataclasses.replace(
+            config.tracer, photon_dtype="float16"))
+        halfst = step.full_trace_step(scene, step.init_state(scene, half),
+                                      half)
+        assert halfst.photons.positions.dtype == torch.float16
+        assert bool(torch.isfinite(halfst.light_volume).all())
+        from cpm_tpu_torch.ops import rng, tracer
+        nss = dataclasses.replace(config.tracer, no_single_scattering=True)
+        _, stats = tracer.trace_photons(
+            scene.volume, scene.tf, scene.tf_scattering,
+            state.light_samples, rng.prng_key(0), nss, return_stats=True)
+        assert stats["wavefront_iters"] > 0
+        light = Light.cone((0.5, 1.4, 0.5), (0.0, -1.0, 0.0))
+        pts = torch.rand(8, 3)
+        assert bool((nee.nee_single_scatter(light, scene.volume, scene.tf,
+                                            pts, n_steps=8) >= 0).all())
+        verts, faces = intersect.box_mesh(device="cpu")
+        spans = intersect.light_sample_mesh_intersection(
+            state.light_samples.origins, state.light_samples.directions,
+            verts, faces)
+        assert tuple(spans.shape) == (256, 2)
+        image = debug.samples_to_image(torch.rand(64, 4), 4, 4)
+        assert abs(float(image.mean()) - 1.0) < 1e-5
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "grid.u3d")
+            u3d.write_u3d(path, np.ones((1, 2, 3, 4), np.float32))
+            assert u3d.read_u3d(path).data.shape == (1, 2, 3, 4)
         assert splat_product.splat_product_direct.launches == 0
         assert splat_product.splat_product_tiled.launches == 0
         assert splat_product.bin_deposits.launches == 0

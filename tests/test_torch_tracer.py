@@ -164,20 +164,13 @@ def test_sentinels_fill_slots_in_order_and_are_deterministic():
     assert np.all((pos >= -1e-4) & (pos <= 1 + 1e-4))
 
 
-@pytest.mark.parametrize("what", ["return_stats", "record_events",
-                                  "no_single_scattering", "float16"])
+@pytest.mark.parametrize("what", ["record_events"])
 def test_unported_options_raise(what):
+    """The event tape of the gradients is not ported yet; the forward
+    options are (tests/test_torch_tracer_options.py)."""
     vol, tf, tfs = _homogeneous(0.5, 0.9, dim=8)
     ls = emit.emit(jlights.Light.directional([0.0, 0.0, 1.0]),
                    sampling.stratified_grid_2d(4, 4, device="cpu"))
-    kw, cfg = {}, TracerConfig()
-    if what == "no_single_scattering":
-        cfg = TracerConfig(no_single_scattering=True)
-    elif what == "float16":
-        cfg = TracerConfig(photon_dtype="float16")
-    elif what == "record_events":
-        kw = dict(record_events=8)
-    else:
-        kw = dict(return_stats=True)
     with pytest.raises(NotImplementedError):
-        tracer.trace_photons(vol, tf, tfs, ls, rng.prng_key(0), cfg, **kw)
+        tracer.trace_photons(vol, tf, tfs, ls, rng.prng_key(0),
+                             TracerConfig(), **{what: 8})
