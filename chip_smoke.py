@@ -78,6 +78,22 @@ no result, without them. It imports nothing but the port. In order it:
    its loop on 4,096 pixels, the sweep's intermediate image against
    ``march_zplanes_oracle`` on 4,096 rays, both renderers timed in turns,
    and the eye-inside camera at 256^2 (sweep against marcher);
+   Then the trajectory gradients at the default frame: the trace with a
+   64-slot event tape (photons equal to the trace without it, no lane
+   over the cap, no added host wait, timed in turns), the replay (equal
+   to the traced powers, rtol 2e-5), a linear image loss through replay
+   -> splat (``method="auto"``: the kernel forward and backward) -> sweep
+   with its gradients held to an exact difference (light scale, 1e-4),
+   finite differences (density, TF colours, 5e-2) and, for the full
+   estimator of ``score_grad.trajectory_gradients`` (counted), the Euler
+   identity in the light powers (1e-5); the image MSE against a target
+   rendered after the TF edit, its full estimator with respect to the TF
+   colours on the card against the CPU's from the same photons and tape
+   (1e-3); the stages timed, one gradient profiled, peak memory; the
+   backward kernel against its plain version and the adjoint identity on
+   the frame's deposits and a correlated step's delta list, timed beside
+   its bound; and ``examples/fit_tf_torch.py`` on the card (12 steps,
+   within 20% of theta, counted);
 7. runs one ``correlated_step_scalable`` at the large frame (budget
    419,584), counted, and times both designs on its deposits;
 8. drives BASELINE config 4 at full width (bench.py:343-446: a 128^3 x
@@ -140,8 +156,9 @@ from cpm_tpu_torch.core.types import TransferFunction, Volume, f32_scalar
 from cpm_tpu_torch.io import synthetic
 from cpm_tpu_torch.kernels import splat_product as sp
 from cpm_tpu_torch.ops import (debug, emit, gather, intersect, minmax, mixer,
-                               nee, rng, sampling, screen_importance, select,
-                               splat, sweep_render, tracer)
+                               nee, replay, rng, sampling, score_grad,
+                               screen_importance, select, splat, sweep_render,
+                               tracer)
 from cpm_tpu_torch.ops.importance import ImportanceWeights
 from cpm_tpu_torch.pipeline import step
 from cpm_tpu_torch.pipeline import timevarying as tv
@@ -290,6 +307,7 @@ DESIGNS = {"direct": sp.splat_product_direct,
 _BIN_RECORDS = {"Memset": 1, "bin_count_kernel": 1, "bin_scan_kernel": 1,
                 "bin_fill_kernel": 1}
 RECORDS = {"direct": {"Memset": 1, "splat_direct_kernel": 1},
+           "grad": {"splat_grad_kernel": 1},
            "bin": _BIN_RECORDS,
            "tiled": {**_BIN_RECORDS, "Memset": 2, "splat_tiled_kernel": 1}}
 # Profiler windows by outcome ("complete", "short", "retaken") and the
@@ -415,7 +433,8 @@ def splat_bound(pos, pw, r: float, dim) -> dict:
     by_bytes, by_ops = byts / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bytes": byts, "flop": flop, "nonzero_terms": terms}
+            "bytes": byts, "flop": flop, "weights": weights,
+            "nonzero_terms": terms}
 
 
 def check_binning(pos, dim, what: str) -> int:
@@ -636,7 +655,7 @@ COUNTED = {"splat_product_direct": sp.splat_product_direct,
 
 def reset_counts() -> None:
     torch.cuda.synchronize()
-    for fn in COUNTED.values():
+    for fn in (*COUNTED.values(), sp.splat_product_grad_cuda):
         fn.launches = 0
 
 
@@ -1005,6 +1024,7 @@ def correlated_default(scene, config, state, dev, tag) -> dict:
           + f" ({tag})")
     return {"launches": launches, "batches": batches, "slots": slots,
             "flagged": flagged, "on_delta": on_delta, "stage_ms": times,
+            "delta_list": batch_deposits(state, first, config),
             "host_waits": total, "host_waits_in_retrace": in_trace,
             "drained": drained, "full_edit": full_edit}
 
@@ -2078,6 +2098,481 @@ def nee_mesh(scene, state, dev, tag) -> None:
     torch.testing.assert_close(spans[both], box[both], rtol=1e-4, atol=1e-5)
 
 
+# --- trajectory gradients (replay, score surrogate, splat backward) -------
+
+GRAD_TAPE = 64  # event-tape cap; the default frame's lanes make <= 48 tests
+GRAD_REPLAY_RTOL = 2e-5  # replayed vs traced powers (tests/test_grad.py)
+GRAD_LIGHT_RTOL = 1e-4  # light radiance: the loss is affine in it
+GRAD_FD_RTOL = 5e-2  # finite differences, as tests/test_grad.py
+GRAD_EULER_RTOL = 1e-5  # <P, dL/dP> = L - L(P = 0)
+# The card's and the CPU's estimator: the card's backward gathers and
+# atomics sum in another order.
+GRAD_CPU_RTOL = 1e-3
+GRAD_CHANNELS = (0.5, 1.0, 1.5)  # tests/test_grad.py:_loss's weights
+FIT_REL_ERR = 0.2  # examples/fit_tf.py's exit rule
+ADJOINT_RTOL = 1e-5
+FIT_EXAMPLE = Path(__file__).resolve().parent / "examples" / "fit_tf_torch.py"
+
+
+def grad_bound(pos, r: float, dim) -> dict:
+    """The least time the card could take for the splat's backward: bytes
+    (12 of position read and 12 of gradient written a slot, the grid's
+    gradient read once) over the memory rate against the operations this
+    data needs (6 per weight of a cell inside a support, 7 per nonzero
+    term: one product of weights and three multiply-adds) over the fp32
+    rate."""
+    m = pos.shape[0]
+    counts = splat_bound(pos, torch.zeros_like(pos), r, dim)
+    byts = 24 * m + 12 * math.prod(dim)
+    flop = 6 * counts["weights"] + 7 * counts["nonzero_terms"]
+    by_bytes, by_ops = byts / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": byts, "flop": flop}
+
+
+def check_backward(what: str, pos, pw, r: float, dim, seed: int,
+                   tag) -> dict:
+    """The backward kernel against its plain version on one deposit list
+    with a seeded grid gradient (rtol 1e-4, atol 1e-6 of the largest
+    value), the adjoint identity <splat(P), G> = <P, splat^T(G)>, and its
+    device time beside the bound, the plain version's and the bare
+    kernel's (event-timed through the C entry point)."""
+    rs = np.random.default_rng(seed)
+    g = torch.from_numpy(rs.standard_normal((*dim, 3)).astype(np.float32)
+                         ).to(pos.device)
+    got = sp.splat_product_grad(pos, g, r, dim)
+    torch.cuda.synchronize()
+    ref = sp.splat_product_grad_torch(pos, g, r, dim)
+    err = compare(got, ref, f"splat backward kernel vs plain on {what}")
+    if bool((got[pos[:, 0] >= 1e30] != 0.0).any()):
+        raise AssertionError(f"{what}: an unused slot got a gradient")
+    fwd = sp.splat_product(pos, pw, r, dim)
+    lhs = float((fwd.double() * g.double()).sum())
+    rhs = float((pw.double() * got.double()).sum())
+    adjoint = abs(lhs - rhs) / abs(lhs)
+    print(f"adjoint identity on {what}: <splat(P), G> {lhs:.9e}, "
+          f"<P, splat^T(G)> {rhs:.9e}, relative difference {adjoint:.3e} "
+          f"(held to {ADJOINT_RTOL})")
+    if adjoint > ADJOINT_RTOL:
+        raise AssertionError(f"{what}: the backward is not the forward's "
+                             "adjoint")
+    lib = sp._library()
+    out = torch.empty_like(pw)
+    inv_r = float(sp.inverse_radius(r))
+    width = sp.kernel_width(r, dim)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bare():
+        if lib.cpm_splat_grad(pos.data_ptr(), g.data_ptr(), pos.shape[0], r,
+                              inv_r, *dim, width, out.data_ptr(), stream):
+            raise RuntimeError("splat backward kernel failed")
+
+    runs = [device_ms("grad", lambda: sp.splat_product_grad(pos, g, r, dim),
+                      50) for _ in range(2)]
+    if min(runs) == 0.0:
+        raise AssertionError("torch.profiler showed no device time")
+    bound = grad_bound(pos, r, dim)
+    res = {"deposits": pos.shape[0], "live": int((pos[:, 0] < 1e30).sum()),
+           "max_abs_err": err, "adjoint_rel": adjoint, "ms_runs": runs,
+           "ms": statistics.median(runs), "bare_ms": cuda_ms(bare, 200),
+           "wrapper_ms": cuda_ms(
+               lambda: sp.splat_product_grad(pos, g, r, dim), 200),
+           "plain_ms": cuda_ms(
+               lambda: sp.splat_product_grad_torch(pos, g, r, dim), 3),
+           **bound, "library_ms": None}
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    print(f"splat backward on {what}: {res['deposits']} slots "
+          f"({res['live']} live) -> {dim}: device "
+          + ", ".join(f"{t:.4f}" for t in runs)
+          + f" ms, bare {res['bare_ms']:.4f} ms, wrapper "
+          f"{res['wrapper_ms']:.4f} ms, plain {res['plain_ms']:.3f} ms; "
+          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
+          f"{res['bytes']} B, {res['flop']} flop), "
+          f"{100 * res['share_of_bound']:.1f}% of it ({tag})")
+    return res
+
+
+def image_loss(scene, config, photons, samples, dim):
+    """tests/test_grad.py:_loss at the frame: the channel-weighted sum of
+    the sweep image (float64 sum) of the splatted replay, a function of
+    (volume data, TF colours, per-channel light scale)."""
+    w = torch.tensor(GRAD_CHANNELS, dtype=torch.float64,
+                     device=photons.positions.device)
+
+    def loss(vol_data, tf_colors, light_scale):
+        vol = dataclasses.replace(scene.volume, data=vol_data)
+        tf = TransferFunction.from_points(scene.tf.positions, tf_colors,
+                                          device=vol_data.device)
+        ls = dataclasses.replace(samples,
+                                 powers=samples.powers * light_scale)
+        ph = replay.replay_photons(vol, tf, scene.tf_scattering, photons, ls)
+        lv = splat.splat_all(ph, dim, method="auto")
+        img = sweep_render.sweep_render(vol, tf, lv, scene.camera,
+                                        config.render)
+        return (img[..., :3].double() * w).sum()
+
+    return loss
+
+
+def deposit_loss(scene, config, dim, photons, target=None):
+    """A loss of the (I, N, 3) deposits for ``score_grad``: the
+    channel-weighted image sum, or, given a target image, the image MSE
+    (x 1e3, as examples/fit_tf.py) taking the render's TF from the
+    scene."""
+    def render(dep, tf):
+        lv = splat.splat_all(dataclasses.replace(photons, powers=dep), dim,
+                             method="auto")
+        return sweep_render.sweep_render(scene.volume, tf, lv, scene.camera,
+                                         config.render)
+
+    if target is None:
+        w = torch.tensor(GRAD_CHANNELS, dtype=torch.float64,
+                         device=scene.device)
+        return lambda dep: (render(dep, scene.tf)[..., :3].double()
+                            * w).sum()
+    return lambda dep, vol, tf, tfs, ls: (
+        (render(dep, tf)[..., :3] - target[..., :3]) ** 2).mean() * 1e3
+
+
+def mse_tf_gradient(scene, config, samples, photons, events, target, dim):
+    """The full (pathwise + score) estimator of the image MSE's gradient
+    with respect to the TF colours: (the MSE at the traced powers,
+    gradient (P, 4))."""
+    loss = deposit_loss(scene, config, dim, photons, target)
+    with torch.no_grad():
+        mse = float(loss(photons.powers, scene.volume, scene.tf,
+                         scene.tf_scattering, samples))
+    sur = score_grad.make_surrogate(scene.volume, scene.tf,
+                                    scene.tf_scattering, samples, photons,
+                                    events, loss, loss_takes_scene=True)
+    colors = scene.tf.colors.detach().clone().requires_grad_(True)
+    tf = TransferFunction.from_points(scene.tf.positions, colors,
+                                      device=colors.device)
+    g, = torch.autograd.grad(
+        sur(scene.volume, tf, scene.tf_scattering, samples), colors)
+    return mse, g
+
+
+def to_device(obj, device):
+    """A container of the port (a dataclass or named tuple of tensors and
+    numbers) with every tensor moved."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if hasattr(obj, "_fields"):
+        return type(obj)(*(to_device(v, device) for v in obj))
+    return dataclasses.replace(obj, **{
+        f.name: to_device(getattr(obj, f.name), device)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def run_fit(tag) -> dict:
+    """examples/fit_tf_torch.py's main() on the card, counted."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("fit_tf_torch",
+                                                  FIT_EXAMPLE)
+    fit = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = fit
+    spec.loader.exec_module(fit)
+    reset_counts()
+    t0 = time.perf_counter()
+    err = fit.main([])
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    launches = {**read_counts(),
+                "splat_product_grad_cuda": sp.splat_product_grad_cuda.launches}
+    print(f"fit_tf_torch on the card: {fit.N_STEPS} steps in {s:.2f} s, "
+          f"relative error {err:.4f} (held to {FIT_REL_ERR}); launches "
+          f"{launches} ({tag})")
+    if not err < FIT_REL_ERR:
+        raise AssertionError(f"fit_tf_torch missed theta by {err:.1%}")
+    if launches["splat_product_grad_cuda"] < fit.N_STEPS:
+        raise AssertionError("the fit did not run the backward kernel")
+    return {"steps": fit.N_STEPS, "seconds": s, "rel_err": err,
+            "launches": launches}
+
+
+def profile_gradient(fn, tag) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall time, the
+    device's busy time (the sum of kernel and memory records), and the
+    device operations that took most of it, by name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_name = collections.Counter()
+    n_ops = 0
+    for e in prof.events():
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        if t > 0.0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name[:60]] += t / 1e3
+            n_ops += 1
+    busy = sum(by_name.values())
+    top = [(name, round(ms, 3)) for name, ms in by_name.most_common(8)]
+    print(f"one trajectory_gradients under the profiler: wall {wall:.1f} ms, "
+          f"{n_ops} device operations busy {busy:.1f} ms (idle "
+          f"{100 * (1 - busy / wall):.1f}%); most device time: {top} "
+          f"({tag})")
+    return {"wall_ms": wall, "device_ops": n_ops, "busy_ms": busy,
+            "top": top}
+
+
+def gradients_default(delta_list, dev, tag) -> dict:
+    """The gradient path at the default frame, through the port's entry
+    points: the traced tape, the replay, a linear image loss's gradients
+    against exact and finite differences and the Euler identity, the
+    image MSE's full estimator against the CPU's, the backward kernel on
+    the frame's list and a correlated step's delta list, times, launches
+    and peak memory; then the fit."""
+    t_phase = time.perf_counter()
+    scene, config = build_frame()
+    state = step.init_state(scene, config)
+    samples = state.light_samples
+    key = rng.fold_in(state.key, 0)
+    dim = step.light_volume_shape(config)
+    r = f32_scalar(config.tracer.radius_rel)
+
+    def trace(cap):
+        return tracer.trace_photons(
+            scene.volume, scene.tf, scene.tf_scattering, samples, key,
+            config.tracer, record_events=cap)
+
+    # 1. The tape: photons equal to the trace without it, no lane over the
+    # cap, no added host wait.
+    plain = trace(0)
+    (photons, events), tape_ms = timed_once(lambda: trace(GRAD_TAPE))
+    for f in PHOTON_FIELDS:
+        if not torch.equal(getattr(photons, f), getattr(plain, f)):
+            raise AssertionError(f"the event tape changed the {f}")
+    counts = events.counts
+    most = int(counts.max())
+    over = int((counts > GRAD_TAPE).sum())
+    waits = {cap: sum(host_waits(lambda cap=cap: trace(cap)).values())
+             for cap in (0, GRAD_TAPE)}
+    turns = [(cap, cuda_ms(lambda cap=cap: trace(cap), reps=1, warmup=0))
+             for cap in (0, GRAD_TAPE, GRAD_TAPE, 0)]
+    tape_bytes = sum(t.numel() * t.element_size() for t in events)
+    kinds = torch.bincount(events.types.reshape(-1)[
+        (torch.arange(GRAD_TAPE, device=dev)[None, :]
+         < counts[:, None]).reshape(-1)].long(), minlength=5).tolist()
+    print(f"event tape of the default frame: {GRAD_TAPE} slots a lane, "
+          f"most tests of a lane {most}, {over} lanes over the cap, "
+          f"{int(counts.sum())} tests (null, scatter, absorb, forced, "
+          f"first: {kinds}); {tape_bytes} B; host waits without / with "
+          f"the tape {waits[0]} / {waits[GRAD_TAPE]}; trace in turns "
+          + ", ".join(f"{'with' if cap else 'without'} {t:.3f} ms"
+                      for cap, t in turns) + f" ({tag})")
+    if over or most > GRAD_TAPE:
+        raise AssertionError(f"{over} lanes overflow the event tape")
+    if waits[GRAD_TAPE] != waits[0]:
+        raise AssertionError("the event tape changes the host waits")
+    del plain
+
+    # 2. The replay equals the traced powers on the deposited slots.
+    rp = replay.replay_powers(scene.volume, scene.tf, scene.tf_scattering,
+                              photons, samples)
+    dep = photons.positions[..., 0] < 1e30
+    torch.testing.assert_close(rp[dep], photons.powers[dep],
+                               rtol=GRAD_REPLAY_RTOL, atol=1e-8)
+    if bool((rp[~dep] != 0.0).any()):
+        raise AssertionError("the replay deposits in unused slots")
+    err = float(((rp - photons.powers).abs()
+                 / photons.powers.abs().clamp(min=1e-30))[dep].max())
+    print(f"replay of {int(dep.sum())} deposits: max relative error to the "
+          f"traced powers {err:.3e} (held to {GRAD_REPLAY_RTOL}), 0 on the "
+          f"{int((~dep).sum())} unused slots")
+    del rp
+
+    # 3. The linear image loss: its gradients against an exact difference
+    # (light scale), finite differences (density, TF colours) and, for the
+    # full estimator, the Euler identity in the light powers.
+    loss = image_loss(scene, config, photons, samples, dim)
+    base = [scene.volume.data, scene.tf.colors,
+            torch.ones(3, device=dev)]
+    xs = [t.detach().clone().requires_grad_(True) for t in base]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    value = loss(*xs)
+    grads = torch.autograd.grad(value, xs)
+    torch.cuda.synchronize()
+    lin_launches = {**read_counts(), "splat_product_grad_cuda":
+                    sp.splat_product_grad_cuda.launches}
+    lin_peak = torch.cuda.max_memory_allocated()
+    value = float(value.detach())
+
+    def at(i, delta):
+        args = list(base)
+        args[i] = args[i] + delta
+        with torch.no_grad():
+            return float(loss(*args))
+
+    light = []
+    for c in range(3):
+        e = torch.zeros(3, device=dev)
+        e[c] = 0.5
+        exact = (at(2, e) - value) / 0.5
+        light.append((exact, float(grads[2][c])))
+        if not math.isclose(exact, light[-1][1], rel_tol=GRAD_LIGHT_RTOL):
+            raise AssertionError(f"light channel {c}: gradient "
+                                 f"{light[-1][1]} against {exact}")
+    rs = np.random.default_rng(20)
+    # Density: a positive direction on the 16^3 block at the cloud's centre,
+    # so each voxel moves by ~eps / 64 as in tests/test_grad.py's 16^3 test.
+    v_vol = torch.zeros_like(base[0])
+    lo = [n // 2 - 8 for n in v_vol.shape]
+    block = rs.random((16, 16, 16)).astype(np.float32) * 0.5 + 0.1
+    v_vol[lo[0]:lo[0] + 16, lo[1]:lo[1] + 16, lo[2]:lo[2] + 16] = (
+        torch.from_numpy(block).to(dev))
+    v_tf = torch.from_numpy(rs.random(tuple(base[1].shape)).astype(
+        np.float32) * 0.5 + 0.1).to(dev)
+    fd = {}
+    for name, i, v, eps in (("density", 0, v_vol, 3e-3),
+                            ("TF colours", 1, v_tf, 2e-3)):
+        v = v / torch.linalg.vector_norm(v)
+        num = (at(i, eps * v) - at(i, -eps * v)) / (2 * eps)
+        an = float((grads[i].double() * v.double()).sum())
+        fd[name] = (num, an)
+        if abs(an) < 1e-8 or not math.isclose(num, an,
+                                              rel_tol=GRAD_FD_RTOL):
+            raise AssertionError(f"{name}: gradient {an} against the finite "
+                                 f"difference {num}")
+    print(f"linear image loss {value:.9e} at 512^2: light-scale gradient vs "
+          "exact difference " + ", ".join(f"{a:.7e} / {b:.7e}"
+                                          for b, a in light)
+          + "; finite differences (numeric / analytic): "
+          + ", ".join(f"{k} {a:.6e} / {b:.6e}" for k, (a, b) in fd.items())
+          + f"; one gradient launched {lin_launches}, peak "
+          f"{lin_peak / 2**30:.2f} GiB ({tag})")
+    del grads, xs
+
+    lin = deposit_loss(scene, config, dim, photons)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (val, g), grad_ms = timed_once(
+        lambda: score_grad.trajectory_gradients(
+            scene.volume, scene.tf, scene.tf_scattering, samples, photons,
+            events, lin))
+    full_launches = {**read_counts(), "splat_product_grad_cuda":
+                     sp.splat_product_grad_cuda.launches}
+    full_peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        dark = float(lin(torch.zeros_like(photons.powers)))
+    euler = float((g["light_samples.powers"].double()
+                   * samples.powers.double()).sum())
+    rel = abs(euler - (float(val) - dark)) / abs(float(val) - dark)
+    print(f"full estimator of the linear loss: {grad_ms:.1f} ms (first "
+          f"run), launches {full_launches}, peak "
+          f"{full_peak / 2**30:.2f} GiB; Euler identity <P, dL/dP> "
+          f"{euler:.9e} against L - L(P = 0) {float(val) - dark:.9e} "
+          f"(L(P = 0) = {dark:.6e}, the ambient term): relative "
+          f"{rel:.3e} (held to {GRAD_EULER_RTOL}) ({tag})")
+    if rel > GRAD_EULER_RTOL:
+        raise AssertionError("the Euler identity fails")
+    if full_launches["splat_product_grad_cuda"] < 1 or full_launches[
+            "splat_product_direct"] < 1:
+        raise AssertionError("the gradient did not run both splat kernels")
+    del g
+
+    # 4. The image MSE against a target after the TF edit: the full
+    # estimator with respect to the TF colours on the card and on the CPU
+    # from the same photons and tape.
+    _, target = run_frame(edit_tf(scene), config)
+    mse, g_card = mse_tf_gradient(scene, config, samples, photons, events,
+                                  target, dim)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cpu_scene = dataclasses.replace(scene, **{
+        f: to_device(getattr(scene, f), cpu)
+        for f in ("volume", "tf", "tf_scattering", "camera")})
+    mse_cpu, g_cpu = mse_tf_gradient(
+        cpu_scene, config, to_device(samples, cpu),
+        to_device(photons, cpu), to_device(events, cpu), target.cpu(), dim)
+    cpu_s = time.perf_counter() - t0
+    print(f"image MSE after the TF edit: {mse:.9e} (CPU {mse_cpu:.9e}); "
+          f"TF-colour gradient of the full estimator, card vs CPU: max "
+          f"relative difference "
+          f"{float(((g_card.cpu() - g_cpu).abs() / g_cpu.abs().max()).max()):.3e} "
+          f"of the largest component (held to rtol {GRAD_CPU_RTOL}); the "
+          f"CPU's took {cpu_s:.1f} s ({tag})")
+    torch.testing.assert_close(g_card.cpu(), g_cpu, rtol=GRAD_CPU_RTOL,
+                               atol=GRAD_CPU_RTOL * float(
+                                   g_cpu.abs().max()))
+    if not math.isclose(mse, mse_cpu, rel_tol=GRAD_CPU_RTOL):
+        raise AssertionError("the MSE differs between card and CPU")
+
+    # 5. Times of the gradient's stages (warm, CUDA events).
+    mse_loss = deposit_loss(scene, config, dim, photons, target)
+    sur = score_grad.make_surrogate(scene.volume, scene.tf,
+                                    scene.tf_scattering, samples, photons,
+                                    events, mse_loss, loss_takes_scene=True)
+    colors = scene.tf.colors.detach().clone().requires_grad_(True)
+
+    def forward():
+        return sur(scene.volume, TransferFunction.from_points(
+            scene.tf.positions, colors, device=dev), scene.tf_scattering,
+                   samples)
+
+    def backward():
+        return torch.autograd.grad(forward(), colors)
+
+    stages = {
+        "trace with the tape": lambda: trace(GRAD_TAPE),
+        "replay_powers": lambda: replay.replay_powers(
+            scene.volume, scene.tf, scene.tf_scattering, photons, samples),
+        "log_prob_lanes": lambda: score_grad.log_prob_lanes(
+            events, scene.volume, scene.tf, scene.tf_scattering),
+        "make_surrogate (MSE)": lambda: score_grad.make_surrogate(
+            scene.volume, scene.tf, scene.tf_scattering, samples, photons,
+            events, mse_loss, loss_takes_scene=True),
+        "surrogate forward": forward,
+        "surrogate forward + backward": backward,
+        "trajectory_gradients (linear loss)":
+            lambda: score_grad.trajectory_gradients(
+                scene.volume, scene.tf, scene.tf_scattering, samples,
+                photons, events, lin),
+    }
+    # Every stage has run before: warm, two repetitions each.
+    times = {name: cuda_ms(fn, reps=2, warmup=0)
+             for name, fn in stages.items()}
+    for name, t in times.items():
+        print(f"gradient stage {name}: {t:.3f} ms ({tag})")
+
+    busy = profile_gradient(stages["trajectory_gradients (linear loss)"],
+                            tag)
+
+    # 6. The backward kernel on the frame's own deposit list and on a
+    # correlated step's signed delta list.
+    pos, pw = splat.product_deposits(photons)
+    on_frame = check_backward("the default frame's deposits", pos, pw, r,
+                              dim, 30, tag)
+    on_delta = check_backward(
+        f"the {delta_list[0].shape[0]} signed delta slots of a default "
+        "correlated step", *delta_list, r, dim, 31, tag)
+    del scene, state, photons, events, sur, target, stages
+    torch.cuda.empty_cache()
+    fitted = run_fit(tag)
+    print(f"the gradients phase and the fit took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"tape": {"cap": GRAD_TAPE, "most": most, "over": over,
+                     "bytes": tape_bytes, "host_waits": waits,
+                     "trace_ms_in_turns": turns, "first_run_ms": tape_ms,
+                     "types": kinds},
+            "light": light, "finite_differences": fd, "euler_rel": rel,
+            "linear_launches": lin_launches, "launches": full_launches,
+            "peak_bytes": {"linear_gradient": lin_peak,
+                           "trajectory_gradients": full_peak},
+            "whole_gradient_first_run_ms": grad_ms, "stage_ms": times,
+            "profile": busy,
+            "mse_card_vs_cpu": [mse, mse_cpu], "cpu_s": cpu_s,
+            "on_frame": on_frame, "on_delta": on_delta, "fit": fitted}
+
+
 def kernel_rows(shapes: dict, default_launches: dict,
                 large_launches: dict, on_frames: dict) -> list:
     """The ``kernels`` line: one row per kernel, its top-level numbers
@@ -2150,6 +2645,35 @@ def delta_row(caller: str, shape: str, launches: dict, calls: int,
                                      if d != chosen}}
 
 
+def grad_row(grads: dict) -> dict:
+    """The ``kernels`` row of the splat's backward: its numbers on the
+    default frame's deposits, launches from one ``trajectory_gradients``,
+    the delta list's numbers and the rest of the gradients phase."""
+    on = grads["on_frame"]
+    rest = {k: v for k, v in grads.items() if k not in ("on_frame",
+                                                         "on_delta")}
+    return {
+        "name": "splat_product_grad_cuda", "route": "cuda",
+        "source": "cpm_tpu_torch/csrc/splat_product.cu",
+        "replaces": "cpm_tpu/ops/splat.py:54",
+        "replaces_note": "no TPU kernel: the reference differentiates the "
+                         "XLA product splat (splat_product_xla); this is the "
+                         "adjoint of cpm_tpu/pallas/splat_mxu.py:57",
+        "caller": "score_grad.trajectory_gradients (default frame)",
+        "launches": grads["launches"]["splat_product_grad_cuda"],
+        "forward_launches_per_gradient": grads["launches"][
+            "splat_product_direct"] + grads["launches"][
+            "splat_product_tiled"],
+        "held_against_plain": True, "max_abs_err": on["max_abs_err"],
+        "adjoint_rel": on["adjoint_rel"], "ms": on["ms"],
+        "ms_runs": on["ms_runs"], "bare_ms": on["bare_ms"],
+        "wrapper_ms": on["wrapper_ms"], "plain_ms": on["plain_ms"],
+        "bound_ms": on["bound_ms"], "bound_by": on["bound_by"],
+        "share_of_bound": on["share_of_bound"], "library_ms": None,
+        "deposits": on["deposits"], "live": on["live"],
+        "on_delta_list": grads["on_delta"], "gradients": rest}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -2217,6 +2741,10 @@ def main() -> None:
     marched = march_frame(dev, tag)
     print(f"the tracer's options, the marcher, screen-space importance, NEE "
           f"and the mesh spans took {time.perf_counter() - t_slice:.1f} s")
+
+    # --- trajectory gradients at the default frame and the fit, counted ---
+    grads = gradients_default(correlated.pop("delta_list"), dev, tag)
+    torch.cuda.empty_cache()
 
     # --- time-varying playback (config 4), guided emission (config 3) and
     # the other emission modes, counted ---
@@ -2342,6 +2870,7 @@ def main() -> None:
         "65x65x65x3", weighted["launches"], weighted["batches"],
         weighted["on_delta"]))
     rows[-1]["drain_ms"] = weighted["drain_ms"]
+    rows.append(grad_row(grads))
     rows[0]["trace_stats"] = {"default frame": stats,
                               "config 4 step retrace": playback[
                                   "trace_stats"]}

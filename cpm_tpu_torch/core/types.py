@@ -70,6 +70,26 @@ class Volume:
                                           device=data.device))
 
 
+def clip(x: Tensor, lo: float | None = None,
+         hi: float | None = None) -> Tensor:
+    """``torch.clamp(x, lo, hi)`` whose gradient at a bound is halved, as
+    ``jnp.clip``'s and ``jnp.maximum``'s are (ties split the gradient), so
+    gradients match the reference's where a value sits exactly on a bound
+    (a volume's zeros on a TF's first point). Without a graph it is the
+    one clamp: the tie-splitting form dispatches four operators for it
+    (two 0-dim fills, ``maximum``, ``minimum``), each a launch on a card,
+    and ``sample_opacity`` runs it once per TF segment, twice a flight in
+    the host-bound trace loop (63 operators a call instead of 54 at the
+    default 4-point TF)."""
+    if not x.requires_grad:
+        return torch.clamp(x, lo, hi)
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_full((), hi))
+    return x
+
+
 def interp(x: Tensor, xp: Tensor, fp: Tensor) -> Tensor:
     """``jnp.interp`` in torch: piecewise-linear with edge clamping."""
     i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.shape[0] - 1)
@@ -82,6 +102,14 @@ def interp(x: Tensor, xp: Tensor, fp: Tensor) -> Tensor:
                     fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
     f = torch.where(x < xp[0], fp[0], f)
     return torch.where(x > xp[-1], fp[-1], f)
+
+
+def _float32(x, device) -> Tensor:
+    """``x`` as a float32 tensor on ``device``: a tensor through ``.to``
+    (its autograd graph survives), anything else through numpy."""
+    if isinstance(x, Tensor):
+        return x.to(device, F32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
 @dataclass
@@ -97,10 +125,11 @@ class TransferFunction:
     @classmethod
     def from_points(cls, positions, colors, lut_size: int = 256,
                     device=None) -> "TransferFunction":
-        positions = torch.as_tensor(np.asarray(positions, np.float32),
-                                    device=resolve(device))
-        colors = torch.as_tensor(np.asarray(colors, np.float32),
-                                 device=positions.device)
+        """Tensors are moved, not copied through numpy, so a point list
+        that requires grad keeps its graph (an inverse-rendering fit
+        differentiates through ``from_points``)."""
+        positions = _float32(positions, resolve(device))
+        colors = _float32(colors, positions.device)
         x = (torch.arange(lut_size, dtype=F32, device=positions.device)
              + 0.5) / lut_size
         lut = torch.stack([interp(x, positions, colors[:, c])
@@ -114,7 +143,7 @@ class TransferFunction:
         acc = c[0].expand(x.shape + (c.shape[-1],))
         for s in range(p.shape[0] - 1):
             t = (x - p[s]) / torch.clamp(p[s + 1] - p[s], min=1e-12)
-            t = torch.clamp(t, 0.0, 1.0)
+            t = clip(t, 0.0, 1.0)
             seg = c[s] + (c[s + 1] - c[s]) * t[..., None]
             acc = torch.where((x >= p[s])[..., None], seg, acc)
         return acc
@@ -125,7 +154,7 @@ class TransferFunction:
         acc = c[0].expand(x.shape)
         for s in range(p.shape[0] - 1):
             t = (x - p[s]) / torch.clamp(p[s + 1] - p[s], min=1e-12)
-            t = torch.clamp(t, 0.0, 1.0)
+            t = clip(t, 0.0, 1.0)
             seg = c[s] + (c[s + 1] - c[s]) * t
             acc = torch.where(x >= p[s], seg, acc)
         return acc

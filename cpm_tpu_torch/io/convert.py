@@ -17,6 +17,7 @@ from cpm_tpu_torch.core.device import resolve
 from cpm_tpu_torch.core.scene import Scene
 from cpm_tpu_torch.core.types import (LightSamples, PhotonData,
                                       TransferFunction, Volume)
+from cpm_tpu_torch.ops.tracer import TraceEvents
 from cpm_tpu_torch.pipeline.state import PhotonMapState
 
 _PHOTON_ARRAYS = ("positions", "powers", "directions", "exit_power",
@@ -59,22 +60,37 @@ def scene_from_numpy(leaves: dict, lights, device=None) -> Scene:
                  lights=tuple(lights))
 
 
+def photons_from_numpy(leaves: dict, device=None) -> PhotonData:
+    """The port's PhotonData from the reference's ``photons.*`` arrays, on
+    the card unless ``device`` names another; the photon fields keep their
+    float type."""
+    device = resolve(device)
+    return PhotonData(
+        **{f: _tensor(leaves[f"photons.{f}"], device, keep_float=True)
+           for f in _PHOTON_ARRAYS},
+        radius_rel=float(np.float32(leaves["photons.radius_rel"])),
+        scene_radius=float(np.float32(leaves["photons.scene_radius"])),
+        iteration=int(leaves["photons.iteration"]))
+
+
+def samples_from_numpy(leaves: dict, device=None) -> LightSamples:
+    """The port's LightSamples from the reference's ``light_samples.*``
+    arrays, on the card unless ``device`` names another."""
+    device = resolve(device)
+    return LightSamples(
+        **{f: _tensor(leaves[f"light_samples.{f}"], device)
+           for f in _SAMPLE_ARRAYS},
+        iteration=int(leaves["light_samples.iteration"]))
+
+
 def state_from_numpy(leaves: dict, device=None) -> PhotonMapState:
     """The port's PhotonMapState from the reference state's arrays, on the
     card unless ``device`` names another. Photon fields keep their float
     type (float16 storage stays float16); every other float leaf is
     float32."""
     device = resolve(device)
-    photons = PhotonData(
-        **{f: _tensor(leaves[f"photons.{f}"], device, keep_float=True)
-           for f in _PHOTON_ARRAYS},
-        radius_rel=float(np.float32(leaves["photons.radius_rel"])),
-        scene_radius=float(np.float32(leaves["photons.scene_radius"])),
-        iteration=int(leaves["photons.iteration"]))
-    samples = LightSamples(
-        **{f: _tensor(leaves[f"light_samples.{f}"], device)
-           for f in _SAMPLE_ARRAYS},
-        iteration=int(leaves["light_samples.iteration"]))
+    photons = photons_from_numpy(leaves, device)
+    samples = samples_from_numpy(leaves, device)
     key = np.asarray(leaves["key"]).astype(np.uint32)
     prev = leaves.get("prev_minmax")
     return PhotonMapState(
@@ -86,6 +102,22 @@ def state_from_numpy(leaves: dict, device=None) -> PhotonMapState:
         n_remaining=int(leaves["n_remaining"]),
         recompute_phase=int(leaves["recompute_phase"]),
         prev_minmax=None if prev is None else _tensor(prev, device))
+
+
+def events_from_numpy(leaves: dict, device=None) -> TraceEvents:
+    """The port's TraceEvents from the reference tape's ``events.*``
+    arrays, on the card unless ``device`` names another: positions and
+    majorants float32, types and counts int32."""
+    device = resolve(device)
+
+    def ints(name):
+        return torch.from_numpy(np.array(leaves[f"events.{name}"],
+                                         dtype=np.int32)).to(device)
+
+    return TraceEvents(
+        positions=_tensor(leaves["events.positions"], device),
+        majorants=_tensor(leaves["events.majorants"], device),
+        types=ints("types"), counts=ints("counts"))
 
 
 def state_to_numpy(state: PhotonMapState) -> dict:

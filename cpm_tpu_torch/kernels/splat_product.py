@@ -16,6 +16,13 @@ thread per deposit, global atomics) or :func:`splat_product_tiled`
 per brick combines them in shared memory and adds its tile to the grid
 once). Tensors on another device, or of another type, shape or layout,
 raise.
+
+The splat's backward with respect to the powers is its transpose,
+:func:`splat_product_grad`: CPU tensors go to
+:func:`splat_product_grad_torch`, CUDA tensors to the gather kernel
+``splat_grad_kernel`` (one thread per deposit, no atomics). The Pallas
+kernel has none: the reference differentiates an XLA splat.
+:class:`SplatProduct` joins the forward and this backward for autograd.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from cpm_tpu_torch.core.types import full_fp32_matmul
 
@@ -62,6 +70,19 @@ def voxel_centres(n: int, device) -> Tensor:
     return torch.from_numpy(c).to(device)
 
 
+def _axis_kernels(positions: Tensor, inv_r: float, centres: tuple):
+    """(Kz, Ky, Kx): each deposit's weight at every cell centre of each
+    axis, (M, D), (M, H), (M, W); ``centres`` are the (z, y, x) axes'
+    :func:`voxel_centres`."""
+    def kern(c, p):
+        dist = (c[None, :] - p[:, None]) * inv_r
+        return torch.clamp(0.75 * (1.0 - dist * dist), min=0.0)
+
+    zc, yc, xc = centres
+    return (kern(zc, positions[:, 2]), kern(yc, positions[:, 1]),
+            kern(xc, positions[:, 0]))
+
+
 def splat_product_torch(positions: Tensor, powers: Tensor,
                         radius_rel: float, out_dim: tuple,
                         chunk: int = 16384) -> Tensor:
@@ -70,24 +91,41 @@ def splat_product_torch(positions: Tensor, powers: Tensor,
     ``powers`` already carry the scale and validity mask."""
     full_fp32_matmul()
     d, h, w = out_dim
-    dev = positions.device
     inv_r = float(inverse_radius(radius_rel))
-
-    zc, yc, xc = (voxel_centres(n, dev) for n in (d, h, w))
-
-    def kern(c, p):
-        dist = (c[None, :] - p[:, None]) * inv_r
-        return torch.clamp(0.75 * (1.0 - dist * dist), min=0.0)
-
-    acc = torch.zeros((d * h, w * 3), dtype=torch.float32, device=dev)
+    centres = tuple(voxel_centres(n, positions.device) for n in out_dim)
+    acc = torch.zeros((d * h, w * 3), dtype=torch.float32,
+                      device=positions.device)
     for lo in range(0, positions.shape[0], chunk):
-        p = positions[lo:lo + chunk]
-        pp = powers[lo:lo + chunk]
-        a = (kern(zc, p[:, 2])[:, :, None]
-             * kern(yc, p[:, 1])[:, None, :]).reshape(-1, d * h)
-        b = (kern(xc, p[:, 0])[:, :, None] * pp[:, None, :]).reshape(-1, w * 3)
+        kz, ky, kx = _axis_kernels(positions[lo:lo + chunk], inv_r, centres)
+        a = (kz[:, :, None] * ky[:, None, :]).reshape(-1, d * h)
+        b = (kx[:, :, None] * powers[lo:lo + chunk, None, :]).reshape(
+            -1, w * 3)
         acc.addmm_(a.T, b)
     return acc.reshape(d, h, w, 3)
+
+
+def splat_product_grad_torch(positions: Tensor, grad: Tensor,
+                             radius_rel: float, out_dim: tuple,
+                             chunk: int = 16384) -> Tensor:
+    """Plain version of the splat's backward: the (M, 3) gradient of the
+    powers given the (D, H, W, 3) gradient of the grid,
+    dP[m, c] = sum Kz Ky Kx G[z, y, x, c], as a dense contraction per chunk
+    of deposits (the transpose of :func:`splat_product_torch`, which is
+    autograd's result for it). Unused slots give 0."""
+    full_fp32_matmul()
+    d, h, w = out_dim
+    inv_r = float(inverse_radius(radius_rel))
+    centres = tuple(voxel_centres(n, positions.device) for n in out_dim)
+    g = grad.reshape(d * h, w * 3)
+    out = []
+    for lo in range(0, positions.shape[0], chunk):
+        kz, ky, kx = _axis_kernels(positions[lo:lo + chunk], inv_r, centres)
+        a = (kz[:, :, None] * ky[:, None, :]).reshape(-1, d * h)
+        t = (a @ g).reshape(-1, w, 3)
+        out.append((kx[:, :, None] * t).sum(1))
+    if not out:
+        return grad.new_zeros((0, 3))
+    return torch.cat(out)
 
 
 # --- brick geometry, shared with csrc/splat_product.cu -------------------
@@ -261,8 +299,10 @@ def _library():
                                      ptr, ptr]
     lib.cpm_splat_tiled.argtypes = [ptr, ptr, ptr, ptr, i32, f32, f32, i32,
                                     i32, i32, i32, i32, ptr, ptr]
+    lib.cpm_splat_grad.argtypes = [ptr, ptr, i32, f32, f32, i32, i32, i32,
+                                   i32, ptr, ptr]
     for fn in (lib.cpm_splat_direct, lib.cpm_bin_deposits,
-               lib.cpm_splat_tiled):
+               lib.cpm_splat_tiled, lib.cpm_splat_grad):
         fn.restype = ctypes.c_int
     return lib
 
@@ -425,3 +465,80 @@ def splat_product(positions: Tensor, powers: Tensor, radius_rel: float,
     if choose_design(positions.shape[0], radius_rel, dim) == "tiled":
         return splat_product_tiled(positions, powers, radius_rel, dim)
     return splat_product_direct(positions, powers, radius_rel, dim)
+
+
+def _check_grid_grad(grad: Tensor, out_dim: tuple, device) -> None:
+    if grad.dtype != torch.float32:
+        raise TypeError(f"the grid gradient must be float32, got "
+                        f"{grad.dtype}")
+    if tuple(grad.shape) != (*out_dim, 3):
+        raise ValueError(f"the grid gradient must be {(*out_dim, 3)}, got "
+                         f"{tuple(grad.shape)}")
+    if not grad.is_contiguous():
+        raise ValueError("the grid gradient must be contiguous")
+    if grad.device != device:
+        raise ValueError("the grid gradient and the deposits lie on "
+                         "different devices")
+
+
+def splat_product_grad_cuda(positions: Tensor, grad: Tensor,
+                            radius_rel: float, out_dim: tuple) -> Tensor:
+    """The splat's backward on CUDA tensors: ``splat_grad_kernel``, one
+    thread per deposit gathering the grid gradient over its window.
+    ``splat_product_grad_cuda.launches`` counts its launches."""
+    r, (d, h, w) = _checked_cuda(positions, positions, radius_rel, out_dim)
+    _check_grid_grad(grad, (d, h, w), positions.device)
+    m = positions.shape[0]
+    out = torch.empty((m, 3), dtype=torch.float32, device=positions.device)
+    with torch.cuda.device(positions.device):
+        err = _library().cpm_splat_grad(
+            positions.data_ptr(), grad.data_ptr(), m, r,
+            float(inverse_radius(r)), d, h, w, kernel_width(r, (d, h, w)),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "splat backward kernel")
+    splat_product_grad_cuda.launches += 1
+    return out
+
+
+splat_product_grad_cuda.launches = 0
+
+
+def splat_product_grad(positions: Tensor, grad: Tensor, radius_rel: float,
+                       out_dim: tuple) -> Tensor:
+    """The (M, 3) gradient of a splat's powers given its grid's gradient
+    (D, H, W, 3): CPU tensors go to the plain version, CUDA tensors launch
+    the backward kernel; anything else raises."""
+    radius_rel = float(np.float32(radius_rel))
+    _check_inputs(positions, positions, radius_rel, out_dim)
+    dim = tuple(int(s) for s in out_dim)
+    _check_grid_grad(grad, dim, positions.device)
+    if positions.device.type == "cpu":
+        return splat_product_grad_torch(positions, grad, radius_rel, dim)
+    return splat_product_grad_cuda(positions, grad, radius_rel, dim)
+
+
+class SplatProduct(torch.autograd.Function):
+    """:func:`splat_product` with its backward with respect to the powers
+    (:func:`splat_product_grad`, the kernel on a card). Positions are
+    samples, not parameters: a position that requires grad raises rather
+    than have its gradient dropped."""
+
+    @staticmethod
+    def forward(ctx, positions: Tensor, powers: Tensor, radius_rel: float,
+                out_dim: tuple) -> Tensor:
+        if positions.requires_grad:
+            raise ValueError("SplatProduct differentiates the powers only; "
+                             "detach the positions")
+        ctx.save_for_backward(positions)
+        ctx.radius_rel, ctx.out_dim = radius_rel, out_dim
+        return splat_product(positions, powers, radius_rel, out_dim)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad: Tensor):
+        positions, = ctx.saved_tensors
+        dpw = None
+        if ctx.needs_input_grad[1]:
+            dpw = splat_product_grad(positions, grad.contiguous(),
+                                     ctx.radius_rel, ctx.out_dim)
+        return None, dpw, None, None

@@ -49,6 +49,16 @@ def voxel_coords(shape_zyx, pos: Tensor) -> Tensor:
                        max=dims - 1.0)
 
 
+def _take(flat: Tensor, idx: Tensor) -> Tensor:
+    """Rows of ``flat`` at any shape of indices, through ``index_select``:
+    its backward adds with ``index_add_``, where advanced indexing's sorts
+    the indices and walks each one's duplicates in a single warp on a card,
+    and the unused slots of a replay or an event tape all read one voxel
+    (3.7 s of a 4.8 s gradient at the default frame on an H100)."""
+    return flat.index_select(0, idx.reshape(-1)).reshape(
+        *idx.shape, *flat.shape[1:])
+
+
 def _trilinear(flat: Tensor, shape_zyx, pos: Tensor) -> Tensor:
     """The weighted sum of the eight edge-clamped corner entries of
     ``flat`` (in z, y, x order) around each position: (...,) from a scalar
@@ -70,8 +80,8 @@ def _trilinear(flat: Tensor, shape_zyx, pos: Tensor) -> Tensor:
             for dx, cx in ((0, c0[..., 0]), (1, c1[..., 0])):
                 wx = frac[..., 0] if dx else 1.0 - frac[..., 0]
                 wgt = wx * wy * wz
-                acc = acc + flat[base + cx] * (wgt[..., None] if rows
-                                               else wgt)
+                acc = acc + _take(flat, base + cx) * (
+                    wgt[..., None] if rows else wgt)
     return acc
 
 

@@ -3,8 +3,10 @@
 Backends: "scatter" is the exact radial-Epanechnikov scatter-add
 (reference parity, ``index_add_``); "matmul" is the plain PyTorch version
 of the separable product kernel; "cuda" is the product kernel's wrapper,
-which launches the hand-written Hopper kernel for CUDA tensors. "auto"
-picks by the device of the tensors (:func:`default_method`).
+which launches the hand-written Hopper kernel for CUDA tensors, through
+``SplatProduct``, so that it is differentiable with respect to the powers
+(its backward is a kernel too). "auto" picks by the device of the tensors
+(:func:`default_method`).
 
 :func:`splat_all` splats every stored photon; :func:`splat_selected` and
 :func:`splat_selected_delta` splat the photons of a retrace batch, the
@@ -22,7 +24,7 @@ import torch
 from cpm_tpu_torch.core import constants
 from cpm_tpu_torch.core.types import PhotonData, relative_irradiance_scale
 from cpm_tpu_torch.kernels.splat_product import (PRODUCT_KERNEL_MATCH,
-                                                 splat_product,
+                                                 SplatProduct,
                                                  splat_product_torch)
 
 Tensor = torch.Tensor
@@ -170,7 +172,7 @@ def _dispatch(method: str, pos: Tensor, pow_: Tensor, valid: Tensor,
                            footprint)
     if method not in ("matmul", "cuda"):
         raise ValueError(f"unknown splat method {method!r}")
-    fn = splat_product_torch if method == "matmul" else splat_product
+    fn = splat_product_torch if method == "matmul" else SplatProduct.apply
     return fn(*_product_list(pos, pow_, valid, scale), radius_rel, out_dim)
 
 

@@ -24,8 +24,12 @@ phase pdf, no albedo test), so only multiple scattering is stored;
 ``photon_dtype="float16"`` casts the three deposit fields at the end (the
 trace itself runs in float32; FLT_MAX becomes +inf, which every
 consumer's ``< 1e30`` test still reads as unused). ``return_stats`` adds
-the wavefront counters; ``record_events`` (the gradients' event tape) is
-not ported yet.
+the wavefront counters; ``record_events=E`` adds the event tape of the
+trajectory gradients (:class:`TraceEvents`, read by ``ops/score_grad.py``).
+
+The trace records no autograd graph (it runs under ``torch.no_grad``):
+its sampling decisions are discrete, and ``ops/replay.py`` recomputes the
+powers differentiably from what it stored.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from typing import NamedTuple
 
 from cpm_tpu_torch.core import constants
 from cpm_tpu_torch.core.config import TracerConfig
@@ -50,6 +56,27 @@ Tensor = torch.Tensor
 _BOUNDARY_EPS = 1e-5
 
 _HISTORY = 512  # active-count history slots when return_stats is on
+
+# Event-tape type codes (cpm_tpu/ops/tracer.py:109-117; ops/score_grad.py
+# reads them):
+EVT_NULL = 0  # rejected flight: factor (1 - sigma/maj)
+EVT_SCATTER = 1  # accepted and scattered: (sigma/maj) * albedo
+EVT_ABSORB = 2  # accepted, absorbed by the albedo test:
+#                 (sigma/maj) * (1 - albedo)
+EVT_FORCED = 3  # accepted at the max_interactions cap: (sigma/maj) only
+EVT_FIRST = 4  # accepted first event under no_single_scattering:
+#                (sigma/maj) only
+
+
+class TraceEvents(NamedTuple):
+    """Per-lane tape of every Woodcock acceptance test a lane made: the
+    trajectory's scene-dependent sampling decisions. ``counts`` may exceed
+    the cap E, and then the lane's tape holds only its first E tests."""
+
+    positions: Tensor  # (N, E, 3) float32, where each test was made
+    majorants: Tensor  # (N, E) float32, the local majorant it used
+    types: Tensor  # (N, E) int32, EVT_* (EVT_NULL where unwritten)
+    counts: Tensor  # (N,) int32, tests made (may exceed E)
 
 
 def majorant_grids(volume: Volume, tf: TransferFunction,
@@ -69,6 +96,7 @@ def majorant_grids(volume: Volume, tf: TransferFunction,
     return maj, dist, torch.amax(maj), cell_min_ext
 
 
+@torch.no_grad()
 def trace_photons(volume: Volume, tf: TransferFunction,
                   tf_scattering: TransferFunction,
                   light_samples: LightSamples, base_key: tuple,
@@ -90,9 +118,12 @@ def trace_photons(volume: Volume, tf: TransferFunction,
     ``active_history`` ((512,) int32 tensor, flight i's active count at
     min(i, 511)) and ``stage_widths`` ([N]: this loop never compacts).
     The counters stay on the device; collecting them adds no host wait.
+
+    With ``record_events=E`` (and no ``return_stats``, which takes
+    precedence as in the reference) the return is (photons,
+    :class:`TraceEvents`): each lane's first E tests, written where they
+    happen without a host wait.
     """
-    if record_events:
-        raise NotImplementedError("not ported yet: record_events")
     dev = volume.device
     n = light_samples.n
     max_i = config.max_interactions
@@ -161,6 +192,16 @@ def trace_photons(volume: Volume, tf: TransferFunction,
     if return_stats:
         active_work = torch.zeros((), dtype=torch.float32, device=dev)
         active_hist = torch.zeros(_HISTORY, dtype=torch.int32, device=dev)
+    if record_events:
+        # Flat tape rows lane * E + e, and one row past them that takes
+        # the writes of lanes that test nothing this flight.
+        n_rows = n * record_events
+        evt_pos = torch.zeros((n_rows + 1, 3), dtype=torch.float32,
+                              device=dev)
+        evt_maj = torch.zeros(n_rows + 1, dtype=torch.float32, device=dev)
+        evt_type = torch.zeros(n_rows + 1, dtype=torch.int32, device=dev)
+        n_evt = torch.zeros(n, dtype=torch.int32, device=dev)
+        row0 = torch.arange(n, device=dev) * record_events
 
     step = 0
     k_unroll = max(1, config.flights_per_iteration)
@@ -222,6 +263,22 @@ def trace_photons(volume: Volume, tf: TransferFunction,
             out_pow = torch.where(slot, stored_power[:, None, :], out_pow)
             out_dir = torch.where(slot, encode_direction(dir_)[:, None, :],
                                   out_dir)
+            if record_events:
+                # Every acceptance test, in the reference's priority
+                # (tracer.py:447-464): rejected, first event, forced stop
+                # at the cap, scatter, absorption.
+                tested = active & ~exited & ~skip
+                etype = torch.where(do_scatter, EVT_SCATTER, EVT_ABSORB)
+                etype = torch.where(n_int_new >= max_i, EVT_FORCED, etype)
+                if nss:
+                    etype = torch.where(first_event, EVT_FIRST, etype)
+                etype = torch.where(collide, etype, EVT_NULL)
+                row = torch.where(tested & (n_evt < record_events),
+                                  row0 + n_evt, n_rows)
+                evt_pos[row] = p
+                evt_maj[row] = maj_op
+                evt_type[row] = etype.to(torch.int32)
+                n_evt += tested
 
             # --- new direction for scattered photons ---
             new_dir, pdf = phase_mod.sample_phase(
@@ -266,16 +323,23 @@ def trace_photons(volume: Volume, tf: TransferFunction,
         scene_radius=f32_scalar(constants.DEFAULT_SCENE_RADIUS),
         iteration=0,
     )
-    if not return_stats:
-        return photons
-    return photons, {
-        "wavefront_iters": step,
-        "mean_active_frac": active_work / float(max(step, 1) * n),
-        "active_history": active_hist,
-        "stage_widths": [n],
-    }
+    if return_stats:
+        return photons, {
+            "wavefront_iters": step,
+            "mean_active_frac": active_work / float(max(step, 1) * n),
+            "active_history": active_hist,
+            "stage_widths": [n],
+        }
+    if record_events:
+        shape = (n, record_events)
+        return photons, TraceEvents(
+            positions=evt_pos[:n_rows].reshape(*shape, 3),
+            majorants=evt_maj[:n_rows].reshape(shape),
+            types=evt_type[:n_rows].reshape(shape), counts=n_evt)
+    return photons
 
 
+@torch.no_grad()
 def trace_photons_chunked(volume: Volume, tf: TransferFunction,
                           tf_scattering: TransferFunction,
                           light_samples: LightSamples, base_key: tuple,

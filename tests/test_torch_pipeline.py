@@ -178,8 +178,9 @@ def test_port_needs_no_jax():
     16^3 x 3 sequence, a guided ``init_state`` with an area light beside
     the directional one, a marched render, a screen-weighted importance
     grid, a float16 frame, a trace without single scattering, NEE, the mesh
-    spans, the debug image and a u3d file; no module of any of them is
-    loaded afterwards."""
+    spans, the debug image, a u3d file, trajectory gradients from an event
+    tape and one gradient of examples/fit_tf_torch.py; no module of any of
+    them is loaded afterwards."""
     script = textwrap.dedent("""
         import sys
         blocked = ("jax", "jaxlib", "flax", "cpm_tpu")
@@ -279,6 +280,28 @@ def test_port_needs_no_jax():
             path = os.path.join(tmp, "grid.u3d")
             u3d.write_u3d(path, np.ones((1, 2, 3, 4), np.float32))
             assert u3d.read_u3d(path).data.shape == (1, 2, 3, 4)
+        from cpm_tpu_torch.ops import replay, score_grad
+        ph, ev = tracer.trace_photons(
+            scene.volume, scene.tf, scene.tf_scattering,
+            state.light_samples, rng.prng_key(0), config.tracer,
+            record_events=16)
+        val, grads = score_grad.trajectory_gradients(
+            scene.volume, scene.tf, scene.tf_scattering,
+            state.light_samples, ph, ev, lambda dep: dep.sum())
+        assert float(val) > 0.0
+        assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "fit_tf_torch", os.path.join("examples", "fit_tf_torch.py"))
+        fit = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = fit
+        spec.loader.exec_module(fit)
+        sc = fit.scene("cpu")
+        photons, events = fit.trace(sc, fit.THETA_INIT, rng.prng_key(7))
+        _, g = fit.theta_gradient(sc, fit.THETA_INIT, photons, events,
+                                  torch.zeros(32, 32, 4))
+        assert np.isfinite(g) and g != 0.0
+        assert splat_product.splat_product_grad_cuda.launches == 0
         assert splat_product.splat_product_direct.launches == 0
         assert splat_product.splat_product_tiled.launches == 0
         assert splat_product.bin_deposits.launches == 0

@@ -1,8 +1,11 @@
 """The port's photon splat against the JAX reference: the plain product
 splat against ``splat_product_xla`` and the interpreted Pallas kernel, the
 radial scatter against the float64 oracle, the dispatch and its device
-rule, the wrapper's input checks, and (on a card only) the Hopper kernels
-against their plain version."""
+rule, the wrapper's input checks, the splat's backward (its plain version
+against autograd, the adjoint identity, unused slots, ``SplatProduct``),
+and (on a card only) the Hopper kernels against their plain versions."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -159,6 +162,110 @@ def test_wrapper_raises_on_inputs_it_does_not_take(bad):
         dim = (8, 0, 8)
     with pytest.raises((TypeError, ValueError)):
         sp.splat_product(pos, pw, r, dim)
+
+
+# The splat's backward, plain version vs autograd of the plain splat: the
+# same float32 products summed in another order.
+GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
+# <splat(P), G> = <P, splat^T(G)> in float64 sums of float32 terms.
+ADJOINT_RTOL = 1e-5
+
+
+def _grid_grad(dim, seed):
+    rs = np.random.default_rng(seed)
+    return torch.from_numpy(rs.standard_normal((*dim, 3)).astype(np.float32))
+
+
+@pytest.mark.parametrize("m,dim,radius", [(300, (17, 23, 29), 0.07),
+                                          (2000, (65, 65, 65), 0.0153866)])
+def test_backward_plain_version_is_autograd_of_the_splat(m, dim, radius):
+    pos, pw = _deposits(m, seed=5)
+    tpos = torch.from_numpy(pos)
+    tpw = torch.from_numpy(pw).requires_grad_(True)
+    g = _grid_grad(dim, seed=6)
+    out = sp.splat_product_torch(tpos, tpw, radius, dim)
+    want, = torch.autograd.grad((out * g).sum(), tpw)
+    got = sp.splat_product_grad_torch(tpos, g, radius, dim)
+    torch.testing.assert_close(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    lhs = float((out.detach().double() * g.double()).sum())
+    rhs = float((tpw.detach().double() * got.double()).sum())
+    assert abs(lhs - rhs) <= ADJOINT_RTOL * abs(lhs)
+
+
+def test_backward_is_zero_on_unused_slots():
+    """FLT_MAX and float16's +inf both mark an unused slot: its gradient
+    is exactly 0, never NaN (0 * NaN would survive the validity mask)."""
+    pos, _ = _deposits(64, seed=7, sentinel_frac=0.0)
+    pos[:4] = constants.FLT_MAX
+    pos[4:8] = np.inf
+    dim = (16, 16, 16)
+    got = sp.splat_product_grad(torch.from_numpy(pos), _grid_grad(dim, 8),
+                                0.09, dim)
+    assert torch.equal(got[:8], torch.zeros(8, 3))
+    assert bool(torch.isfinite(got).all()) and bool((got[8:] != 0).any())
+
+
+def test_splat_product_function_raises_on_positions_that_require_grad():
+    pos, pw = _deposits(32, seed=9)
+    tpos = torch.from_numpy(pos).requires_grad_(True)
+    with pytest.raises(ValueError, match="positions"):
+        sp.SplatProduct.apply(tpos, torch.from_numpy(pw), 0.09, (8, 8, 8))
+
+
+def test_cuda_method_is_differentiable_in_the_powers():
+    """``splat_all(method="cuda")`` goes through SplatProduct (on the CPU:
+    the plain forward and the plain backward); its gradient with respect
+    to the photons' powers equals autograd's through the plain splat."""
+    _, tph, _, _ = _photons(200, 3, seed=10, radius=0.07)
+    g = _grid_grad((15, 15, 15), seed=11)
+    grads = {}
+    for method in ("cuda", "matmul"):
+        powers = tph.powers.clone().requires_grad_(True)
+        ph = dataclasses.replace(tph, powers=powers)
+        out = tsplat.splat_all(ph, (15, 15, 15), method=method)
+        grads[method], = torch.autograd.grad((out * g).sum(), powers)
+    torch.testing.assert_close(grads["cuda"], grads["matmul"],
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("bad", ["float64", "shape", "strided"])
+def test_backward_wrapper_raises_on_a_grid_gradient_it_does_not_take(bad):
+    pos, _ = _deposits(16, seed=12)
+    g = _grid_grad((8, 8, 8), seed=13)
+    g = {"float64": g.double(), "shape": g[:4],
+         "strided": g.transpose(0, 1)}[bad]
+    with pytest.raises((TypeError, ValueError)):
+        sp.splat_product_grad(torch.from_numpy(pos), g, 0.09, (8, 8, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["seeded", "traced"])
+def test_backward_kernel_matches_plain_on_the_card(cuda_device, source):
+    """On the card: the backward kernel against its plain version on the
+    main path's 262,144 slots into 65^3, seeded or a traced default frame's
+    own deposits. Tolerance: the kernel sums in another order (rtol 1e-4,
+    atol 1e-6 of the largest value)."""
+    dim, r = (65, 65, 65), 0.0153866
+    if source == "seeded":
+        pos, _ = _deposits(262144, seed=14, lo=0.0, hi=1.0)
+        tpos = torch.from_numpy(pos).to(cuda_device)
+    else:
+        import chip_smoke
+        from cpm_tpu_torch.pipeline import step
+        scene, config = chip_smoke.build_frame()
+        state = step.full_trace_step(scene, step.init_state(scene, config),
+                                     config)
+        tpos, _ = tsplat.product_deposits(state.photons)
+        r = state.photons.radius_rel
+    g = _grid_grad(dim, seed=15).to(cuda_device)
+    before = sp.splat_product_grad_cuda.launches
+    got = sp.splat_product_grad(tpos, g, r, dim)
+    torch.cuda.synchronize()
+    assert sp.splat_product_grad_cuda.launches == before + 1
+    assert tpos.shape[0] == 262144
+    ref = sp.splat_product_grad_torch(tpos, g, r, dim)
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-6 * float(ref.abs().max()))
 
 
 @pytest.mark.cuda

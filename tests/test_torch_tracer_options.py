@@ -288,10 +288,23 @@ def test_return_stats_changes_nothing_and_counts_every_flight(scene):
 
 
 def test_record_events_still_raises(scene):
+    """A tape of 4 tests a lane leaves the photons as the trace without it
+    leaves them, and every deposit is one of the lane's accepted tests, so
+    counts >= deposits. (The name dates from when the tape was unported
+    and this test checked that it raised; tests/test_torch_score_grad.py
+    holds the tape against the reference.)"""
     (_, _, (tvol, ttf, ttfs), tls) = scene
-    with pytest.raises(NotImplementedError, match="record_events"):
-        tracer.trace_photons(tvol, ttf, ttfs, tls, rng.prng_key(0),
-                             TracerConfig(), record_events=4)
+    plain = tracer.trace_photons(tvol, ttf, ttfs, tls, rng.prng_key(0),
+                                 TracerConfig())
+    ph, ev = tracer.trace_photons(tvol, ttf, ttfs, tls, rng.prng_key(0),
+                                  TracerConfig(), record_events=4)
+    for f in ("positions", "powers", "directions", "exit_power",
+              "exit_direction"):
+        assert torch.equal(getattr(ph, f), getattr(plain, f)), f
+    assert tuple(ev.types.shape) == (tls.n, 4)
+    deposits = (ph.positions[..., 0] < 1e30).sum(0)
+    assert bool((ev.counts >= deposits).all())
+    assert int(ev.counts.max()) > 4 and int(deposits.sum()) > 0
 
 
 # --- the options through the pipeline ---------------------------------------
