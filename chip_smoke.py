@@ -119,6 +119,21 @@ no result, without them. It imports nothing but the port. In order it:
 10. drives the default frame with a point, a cone and an area light, and
    with the directional light in Hilbert sample order, each counted and
    held against the plain splat;
+   Then the multi-device layer at the default frame, each world from the
+   same converted initial state and held against the single-device frame
+   (``full_trace_step`` + ``render_state``) from it (photons bit for bit,
+   light volume and image within rtol 1e-5, atol 1e-6 of the peak): a
+   world of 1 on NCCL in this process (``sharded_full_step``, sweep and
+   marcher, counted); a world of 2 gloo processes, both ranks on this card
+   (``sharded_full_step``, sweep and marcher; each rank counts its own
+   launches, one per step, and prints its trace, splat, all-reduce,
+   render and step times); a world of 4 gloo processes as 2 hosts x 2
+   chips (``multihost_full_step``, sweep); and the kernel on one rank's
+   shard of 2 and of 4 (``splat_all(n_total=)`` against the plain path,
+   both designs timed beside the bound). Then BASELINE config 1 through
+   ``examples/render_sphere_torch.py``'s body (its printed lines, counted:
+   tens of thousands of deposits, alpha max 1, the kernel against the
+   plain version on its deposits);
 11. runs a small frame (16^3 volume, 32^2 photons, 32^2 pixels) on the
    card and on the CPU, where the tests hold the port against the JAX
    reference, and asserts they agree (relative L1 under 1%);
@@ -136,15 +151,18 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cpm_tpu_torch.core.camera import Camera
 from cpm_tpu_torch.core.config import (PipelineConfig, RecomputeConfig,
@@ -153,13 +171,15 @@ from cpm_tpu_torch.core.config import (PipelineConfig, RecomputeConfig,
 from cpm_tpu_torch.core.lights import CONE, Light
 from cpm_tpu_torch.core.scene import Scene
 from cpm_tpu_torch.core.types import TransferFunction, Volume, f32_scalar
-from cpm_tpu_torch.io import synthetic
+from cpm_tpu_torch.io import convert, synthetic
 from cpm_tpu_torch.kernels import splat_product as sp
 from cpm_tpu_torch.ops import (debug, emit, gather, intersect, minmax, mixer,
                                nee, replay, rng, sampling, score_grad,
                                screen_importance, select, splat, sweep_render,
                                tracer)
 from cpm_tpu_torch.ops.importance import ImportanceWeights
+from cpm_tpu_torch.parallel import multihost as mh
+from cpm_tpu_torch.parallel import sharding as psh
 from cpm_tpu_torch.pipeline import step
 from cpm_tpu_torch.pipeline import timevarying as tv
 from cpm_tpu_torch.pipeline.state import DirtyFlags
@@ -2573,6 +2593,339 @@ def gradients_default(delta_list, dev, tag) -> dict:
             "on_frame": on_frame, "on_delta": on_delta, "fit": fitted}
 
 
+# --- multi-device (sharding, multihost) and the config 1 demo ------------
+
+# A sharded frame against the single-device one from the same state: the
+# photons bit for bit, the light volume and the image within the order of
+# the float32 sums (the ranks' partial grids, the kernel's atomics).
+WORLD_RTOL = 1e-5
+WORLD_ATOL_REL = 1e-6
+WORLD_METHODS = ("sweep", "march")
+WORLD_TIMEOUT_S = 300.0
+DEMO_EXAMPLE = (Path(__file__).resolve().parent / "examples"
+                / "render_sphere_torch.py")
+DEMO_MIN_DEPOSITS = 10_000  # "tens of thousands of deposited interactions"
+
+
+def lanes_differing(got: dict, want, lanes: slice) -> int:
+    """The lanes of ``lanes`` whose photon fields in ``got`` (CPU tensors)
+    differ from ``want``'s in any bit."""
+    same = None
+    for f in PHOTON_FIELDS:
+        w = getattr(want, f).cpu()
+        w = w[:, lanes] if w.dim() == 3 else w[lanes]
+        eq = got[f] == w
+        eq = eq.all(2).all(0) if eq.dim() == 3 else (
+            eq.all(1) if eq.dim() == 2 else eq)
+        same = eq if same is None else same & eq
+    return int((~same).sum())
+
+
+def expect_sharded(what: str, ranks: list, single_state, single_img) -> dict:
+    """Hold a world's frame (each rank's {"photons", "light_volume",
+    "image"}, in rank order) against the single-device one: every rank's
+    photons equal the single trace's lanes of its slice bit for bit; every
+    rank's light volume and image within WORLD_RTOL, WORLD_ATOL_REL of the
+    peak. Returns the largest errors."""
+    n = single_state.photons.n
+    per = n // len(ranks)
+    differ = sum(lanes_differing(out["photons"], single_state.photons,
+                                 slice(r * per, (r + 1) * per))
+                 for r, out in enumerate(ranks))
+    errs = {"lanes_differing": differ, "light_volume": 0.0, "image": 0.0}
+    for out in ranks:
+        for key, want in (("light_volume", single_state.light_volume),
+                          ("image", single_img)):
+            want = want.cpu()
+            got = out[key].cpu()
+            scale = float(want.abs().max())
+            torch.testing.assert_close(
+                got, want, rtol=WORLD_RTOL, atol=WORLD_ATOL_REL * scale,
+                msg=lambda m: f"{what}: {key}: {m}")
+            errs[key] = max(errs[key], float((got - want).abs().max()))
+    print(f"{what}: {differ} of {n} lanes differ from the single-device "
+          f"trace; light volume max_abs_err {errs['light_volume']:.3e}, "
+          f"image max_abs_err {errs['image']:.3e} (rtol {WORLD_RTOL}, atol "
+          f"{WORLD_ATOL_REL} of the peak)")
+    if differ:
+        raise AssertionError(f"{what}: {differ} lanes differ from the "
+                             "single-device trace")
+    return errs
+
+
+def single_device_frames() -> tuple:
+    """The default frame's scene, config and initial state, and for each
+    render method the single-device frame from that state:
+    {method: (state, image)}."""
+    scene, config = build_frame()
+    state0 = step.init_state(scene, config)
+    single = {}
+    for m in WORLD_METHODS:
+        cfg = with_render(config, method=m)
+        st = step.full_trace_step(scene, state0, cfg)
+        single[m] = (st, step.render_state(scene, st, cfg))
+    return scene, config, state0, single
+
+
+def world_of_one(scene, config, state0, single, tag) -> dict:
+    """A world of 1 on NCCL in this process: ``sharded_full_step`` for each
+    render method, counted, against the single-device frame."""
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(mh.free_port()),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = {}
+    try:
+        mh.initialize_distributed("nccl")
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        mesh = psh.make_mesh()
+        state = dataclasses.replace(state0, light_samples=(
+            psh.shard_light_samples(state0.light_samples, mesh)))
+        for m in WORLD_METHODS:
+            cfg = with_render(config, method=m)
+            reset_counts()
+            t0 = time.perf_counter()
+            new, img = psh.sharded_full_step(scene, state, cfg, mesh)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = read_counts()
+            slots = new.photons.positions.shape[0] * new.photons.n
+            expect_launches(f"world of 1 (nccl), {m}", launches, [
+                sp.choose_design(slots, new.photons.radius_rel,
+                                 step.light_volume_shape(cfg))])
+            errs = expect_sharded(
+                f"world of 1 (nccl), {m}",
+                [{"photons": {f: getattr(new.photons, f).cpu()
+                              for f in PHOTON_FIELDS},
+                  "light_volume": new.light_volume, "image": img}],
+                *single[m])
+            # Warm, in turns with the single-device frame from the same
+            # state (CUDA events around each whole call).
+            def single_frame(cfg=cfg):
+                st = step.full_trace_step(scene, state0, cfg)
+                return step.render_state(scene, st, cfg)
+
+            turns = {"single": [], "sharded": []}
+            for name in ("single", "sharded", "sharded", "single"):
+                fn = single_frame if name == "single" else (
+                    lambda cfg=cfg: psh.sharded_full_step(scene, state, cfg,
+                                                          mesh))
+                turns[name].append(cuda_ms(fn, reps=1, warmup=0))
+            print(f"world of 1 (nccl), {m}: sharded_full_step first run "
+                  f"{ms:.1f} ms, launches {launches}; in turns: "
+                  + ", ".join(f"{k} " + " / ".join(f"{t:.1f}" for t in v)
+                              for k, v in turns.items())
+                  + f" ms ({tag})")
+            out[m] = {"first_run_ms": ms, "launches": launches,
+                      "in_turns_ms": turns, **errs}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+def world_rank(rank: int, n_hosts: int, methods: tuple,
+               out_dir: str) -> None:
+    """One rank of a gloo world on the card (every rank on the current
+    card): the default frame from the converted initial state in
+    ``out_dir``, sharded over the world (``n_hosts`` > 0: a (hosts, chips)
+    mesh), one counted full step per render method, then each stage's
+    time; prints its line and saves its results in ``out_dir``."""
+    world = dist.get_world_size()
+    scene, config = build_frame()
+    state = convert.state_from_numpy(
+        dict(np.load(os.path.join(out_dir, "state.npz"))),
+        device=scene.device)
+    if n_hosts:
+        mesh = mh.make_hosts_chips_mesh(n_hosts)
+        flat, groups = mesh.flat, (mesh.chips_group, mesh.hosts_group)
+        shard, full = mh.shard_light_samples_2d, mh.multihost_full_step
+    else:
+        mesh = flat = psh.make_mesh()
+        groups = (mesh.group,)
+        shard, full = psh.shard_light_samples, psh.sharded_full_step
+    state = dataclasses.replace(state, light_samples=shard(
+        state.light_samples, mesh))
+    out = {"rank": rank, "device": str(scene.device)}
+    for m in methods:
+        cfg = with_render(config, method=m)
+        full(scene, state, cfg, mesh)  # warm: loads the kernel library
+        reset_counts()
+        new, img = full(scene, state, cfg, mesh)
+        torch.cuda.synchronize()
+        out[m] = {"launches": read_counts(),
+                  "photons": {f: getattr(new.photons, f).cpu()
+                              for f in PHOTON_FIELDS},
+                  "light_volume": new.light_volume.cpu(),
+                  "image": img.cpu()}
+    per = state.light_samples.n
+    slots = new.photons.positions.shape[0] * per
+    dim = step.light_volume_shape(config)
+    out["slots"] = slots
+    out["design"] = sp.choose_design(slots, new.photons.radius_rel, dim)
+    key = rng.fold_in(state.key, 0)
+    lane_ids = flat.rank * per + torch.arange(per, dtype=torch.int64,
+                                              device=scene.device)
+    lv = new.light_volume
+    buf = lv.clone()
+    rcfg = config.render
+    origins, dirs = scene.camera.rays(rcfg.width, rcfg.height)
+    n_steps = gather.default_steps(scene.volume, rcfg.sampling_rate)
+    stages = {
+        "trace": lambda: tracer.trace_photons(
+            scene.volume, scene.tf, scene.tf_scattering,
+            state.light_samples, key, config.tracer, lane_ids=lane_ids),
+        "splat": lambda: splat.splat_all(
+            new.photons, dim, step.splat_footprint(config),
+            n_total=per * world, method="cuda"),
+        "all_reduce": lambda: [dist.all_reduce(buf, group=g)
+                               for g in groups],
+        "render sweep": lambda: psh.sharded_sweep_render(
+            scene.volume, scene.tf, lv, scene.camera, rcfg, flat),
+        "render march": lambda: psh.sharded_render_rays(
+            scene.volume, scene.tf, lv, origins.reshape(-1, 3),
+            dirs.reshape(-1, 3), n_steps, rcfg.ambient, flat),
+    }
+    for m in methods:
+        cfg = with_render(config, method=m)
+        stages[f"step {m}"] = lambda cfg=cfg: full(scene, state, cfg, mesh)
+    out["stage_ms"] = {name: cuda_ms(fn, reps=2)
+                       for name, fn in stages.items()
+                       if not name.startswith("render ")
+                       or name.split()[1] in methods}
+    shape = (f"{mesh.n_hosts} hosts x {mesh.n_chips} chips" if n_hosts
+             else f"{world} ranks")
+    print(f"rank {rank} of {world} ({shape}, gloo, {scene.device}): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in out["stage_ms"].items())
+          + f"; {slots} deposit slots, design {out['design']}, launches "
+          + "; ".join(f"{m} {out[m]['launches']}" for m in methods)
+          + " (CUDA events; the ranks share the card and the host)",
+          flush=True)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def gloo_world(what: str, world: int, n_hosts: int, methods: tuple,
+               state0, single, tag) -> dict:
+    """A gloo world of ``world`` processes on the card (``n_hosts`` > 0: as
+    n_hosts x chips), every rank from the same converted state: each
+    method's frame held against the single-device one, and each rank's
+    splat launched once, in the design the wrapper names."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        # The state goes by file: a spawned rank's arguments stay small.
+        np.savez(os.path.join(out_dir, "state.npz"),
+                 **convert.state_to_numpy(state0))
+        t0 = time.perf_counter()
+        mh.launch_local_world(world_rank, world, "gloo",
+                              (n_hosts, methods, out_dir),
+                              timeout_s=WORLD_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+                 for r in range(world)]
+    res = {"world": world, "wall_s": wall, "errors": {},
+           "slots": ranks[0]["slots"], "design": ranks[0]["design"],
+           "launches": ranks[0][methods[0]]["launches"],
+           "launches_per_rank": {m: [r[m]["launches"] for r in ranks]
+                                 for m in methods},
+           "stage_ms_per_rank": [r["stage_ms"] for r in ranks]}
+    for m in methods:
+        res["errors"][m] = expect_sharded(f"{what}, {m}",
+                                          [r[m] for r in ranks], *single[m])
+        for r in ranks:
+            expect_launches(f"{what}, {m}, rank {r['rank']}",
+                            r[m]["launches"], [r["design"]])
+    print(f"{what}: {world} processes in {wall:.1f} s, ranks on "
+          f"{sorted({r['device'] for r in ranks})} ({tag})")
+    return res
+
+
+def shard_on_kernel(what: str, photons, world: int, dim, tag) -> dict:
+    """Rank 0's shard of a ``world``-rank frame (the single trace's first
+    lanes, which the world traced bit for bit): ``splat_all(n_total=)``
+    through the kernel against the plain path, then both designs and the
+    plain version on its deposit list, timed beside the bound."""
+    n = photons.n
+    per = n // world
+    shard = dataclasses.replace(
+        photons, **{f: (getattr(photons, f)[:, :per]
+                        if getattr(photons, f).dim() == 3
+                        else getattr(photons, f)[:per]).contiguous()
+                    for f in PHOTON_FIELDS})
+    compare(splat.splat_all(shard, dim, n_total=n, method="cuda"),
+            splat.splat_all(shard, dim, n_total=n, method="matmul"),
+            f"{what}: splat_all(n_total={n}) kernel vs plain")
+    pos, pw = splat.product_deposits(shard, n_total=n)
+    res, _ = check_on_list(what, pos, pw, photons.radius_rel, dim, 20, tag)
+    return res
+
+
+def multi_device(dev, tag) -> dict:
+    """Phases a-c: the default frame over a world of 1 on NCCL, 2 gloo
+    ranks (sweep and marcher) and 2 x 2 gloo ranks (sweep), all on this
+    card, each against the single-device frame; the kernel on one rank's
+    shard of 2 and of 4."""
+    t0 = time.perf_counter()
+    scene, config, state0, single = single_device_frames()
+    res = {"world1_nccl": world_of_one(scene, config, state0, single, tag)}
+    res["world2"] = gloo_world("2 gloo ranks on one card", 2, 0,
+                               WORLD_METHODS, state0, single, tag)
+    res["world4"] = gloo_world("2 hosts x 2 chips, gloo, on one card", 4, 2,
+                               ("sweep",), state0, single, tag)
+    photons = single["sweep"][0].photons
+    dim = step.light_volume_shape(config)
+    for key, world in (("world2", 2), ("world4", 4)):
+        res[key]["on_shard"] = shard_on_kernel(
+            f"one rank's shard of {world}", photons, world, dim, tag)
+    print(f"the multi-device phase took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def demo_config1(dev, tag) -> dict:
+    """Phase d: examples/render_sphere_torch.py's body (BASELINE config 1)
+    on the card, counted, with its printed lines: the kernel against the
+    plain version on the demo's own deposits, alpha max 1, tens of
+    thousands of deposits."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("render_sphere_torch",
+                                                  DEMO_EXAMPLE)
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = demo.render_sphere()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    photons, lv, img = out["photons"], out["light_volume"], out["image"]
+    dim = tuple(lv.shape[:3])
+    slots = photons.positions.shape[0] * photons.n
+    design = sp.choose_design(slots, photons.radius_rel, dim)
+    expect_launches("the config 1 demo", launches, [design, design])
+    deposited = int((photons.positions[..., 0] < 1e30).sum())
+    alpha = float(img[..., 3].max())
+    print(f"config 1 demo on the card: two runs in {wall:.2f} s, {deposited} "
+          f"deposits of {slots} slots, image alpha max {alpha:.6f}, "
+          f"launches {launches} ({tag})")
+    if img.device != dev or lv.device != dev:
+        raise AssertionError("the config 1 demo left the card")
+    if deposited < DEMO_MIN_DEPOSITS:
+        raise AssertionError(f"the config 1 demo deposited {deposited}")
+    if abs(alpha - 1.0) > 1e-5 or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"the config 1 demo's alpha max is {alpha}")
+    pos, pw = splat.product_deposits(photons)
+    on_list, ref = check_on_list("the config 1 demo's deposits", pos, pw,
+                                 photons.radius_rel, dim, 20, tag)
+    compare(lv, ref, "config 1 demo: light volume (kernel) vs plain splat")
+    return {"on_list": on_list, "launches": launches, "wall_s": wall,
+            "first_ms": out["first_ms"], "steady_ms": out["steady_ms"],
+            "deposited": deposited, "alpha_max": alpha}
+
+
 def kernel_rows(shapes: dict, default_launches: dict,
                 large_launches: dict, on_frames: dict) -> list:
     """The ``kernels`` line: one row per kernel, its top-level numbers
@@ -2756,6 +3109,12 @@ def main() -> None:
     print(f"config 4, config 3 and the other emission modes took "
           f"{time.perf_counter() - t_new:.1f} s")
 
+    # --- multi-device (a world of 1 on NCCL, 2 and 2 x 2 gloo ranks on this
+    # card) and the config 1 demo, counted per rank ---
+    multi = multi_device(dev, tag)
+    demo = demo_config1(dev, tag)
+    torch.cuda.empty_cache()
+
     on_frames = {"default": on_default, **between_frames(tag)}
 
     # The large frame: a 256^3 cloud, 2048^2 photons x 4 interactions
@@ -2871,6 +3230,25 @@ def main() -> None:
         weighted["on_delta"]))
     rows[-1]["drain_ms"] = weighted["drain_ms"]
     rows.append(grad_row(grads))
+    for key, caller in (
+            ("world2", "sharded_trace_splat (sharded_full_step, 2 gloo ranks "
+                       "on one card, default frame)"),
+            ("world4", "multihost_trace_splat (multihost_full_step, 2 hosts "
+                       "x 2 chips, gloo, on one card, default frame)")):
+        world = multi[key]
+        rows.append(delta_row(
+            caller, f"{world['slots']} deposit slots of one rank's shard -> "
+            "65x65x65x3", world["launches"], 1, world["on_shard"]))
+        rows[-1].update({k: world[k] for k in (
+            "world", "wall_s", "errors", "launches_per_rank",
+            "stage_ms_per_rank")})
+    rows[-2]["world_of_1_nccl"] = multi["world1_nccl"]
+    rows.append(delta_row(
+        "examples/render_sphere_torch.py (config 1 demo, first and steady "
+        "run)", f"{demo['on_list']['deposits']} deposit slots -> 65x65x65x3",
+        demo["launches"], 2, demo["on_list"]))
+    rows[-1].update({k: demo[k] for k in (
+        "wall_s", "first_ms", "steady_ms", "deposited", "alpha_max")})
     rows[0]["trace_stats"] = {"default frame": stats,
                               "config 4 step retrace": playback[
                                   "trace_stats"]}

@@ -96,22 +96,29 @@ def _splat_flat(positions: Tensor, powers: Tensor, valid: Tensor,
     return g[:d * h * w * 3].reshape(d, h, w, 3)
 
 
-def _irradiance_scale(photons: PhotonData, multiplier: float = 1.0) -> float:
+def _irradiance_scale(photons: PhotonData, multiplier: float = 1.0,
+                      n_total: int | None = None) -> float:
     """isotropicPhase * relativeIrradianceScale(N, radius) * multiplier, in
-    float32."""
+    float32. N, the photon count the irradiance is normalized by, is
+    ``photons.n`` unless ``n_total`` is given: a shard of the light samples
+    splats its photons with the count of the whole map, so that the sum of
+    the shards' grids is the grid of all the photons."""
+    n = photons.n if n_total is None else n_total
     return float(np.float32(constants.ISOTROPIC_PHASE) * np.float32(
-        relative_irradiance_scale(photons.n, photons.radius_rel))
+        relative_irradiance_scale(n, photons.radius_rel))
         * np.float32(multiplier))
 
 
-def _flatten(photons: PhotonData):
+def _flatten(photons: PhotonData, n_total: int | None = None):
     """(positions (M, 3), powers (M, 3), valid (M,), irradiance scale) of
     every stored photon, interaction-major, in float32 whatever the
-    photons' storage type (a float16 sentinel is +inf)."""
+    photons' storage type (a float16 sentinel is +inf); the scale
+    normalizes by ``n_total`` photons where it is given."""
     i, n, _ = photons.positions.shape
     pos = photons.positions.reshape(i * n, 3).to(torch.float32)
     pow_ = photons.powers.reshape(i * n, 3).to(torch.float32)
-    return pos, pow_, pos[:, 0] < 1e30, _irradiance_scale(photons)
+    return (pos, pow_, pos[:, 0] < 1e30,
+            _irradiance_scale(photons, n_total=n_total))
 
 
 def _flatten_selected(photons: PhotonData, indices: Tensor, valid: Tensor):
@@ -137,10 +144,11 @@ def _product_list(pos: Tensor, pow_: Tensor, valid: Tensor,
     return pos.contiguous(), powers.contiguous()
 
 
-def product_deposits(photons: PhotonData) -> tuple[Tensor, Tensor]:
+def product_deposits(photons: PhotonData,
+                     n_total: int | None = None) -> tuple[Tensor, Tensor]:
     """The (positions, powers) that ``splat_all`` hands ``splat_product``
-    for these photons."""
-    return _product_list(*_flatten(photons))
+    for these photons (with the same ``n_total``)."""
+    return _product_list(*_flatten(photons, n_total))
 
 
 def _signed_selected(old: PhotonData, new: PhotonData, indices: Tensor,
@@ -177,10 +185,16 @@ def _dispatch(method: str, pos: Tensor, pow_: Tensor, valid: Tensor,
 
 
 def splat_all(photons: PhotonData, out_dim: tuple, footprint: int = 4,
+              n_total: int | None = None,
               method: str = "scatter") -> Tensor:
     """Splat every stored photon into a (D, H, W, 3) RGB irradiance grid
-    scaled by isotropicPhase * relativeIrradianceScale."""
-    pos, pow_, valid, scale = _flatten(photons)
+    scaled by isotropicPhase * relativeIrradianceScale(N, radius).
+    ``n_total`` overrides N, which is ``photons.n`` by default: the
+    parallel layer passes the global photon count when each rank splats
+    only its slice of the photons, so that the ranks' grids sum to the
+    single-device grid. The scale is applied to the powers before the
+    backend (and the CUDA kernel's wrapper) sees them."""
+    pos, pow_, valid, scale = _flatten(photons, n_total)
     return _dispatch(method, pos, pow_, valid, photons.radius_rel, scale,
                      out_dim, footprint)
 

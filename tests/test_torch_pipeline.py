@@ -179,7 +179,9 @@ def test_port_needs_no_jax():
     the directional one, a marched render, a screen-weighted importance
     grid, a float16 frame, a trace without single scattering, NEE, the mesh
     spans, the debug image, a u3d file, trajectory gradients from an event
-    tape and one gradient of examples/fit_tf_torch.py; no module of any of
+    tape, one gradient of examples/fit_tf_torch.py, the entry point's
+    forward, a sharded and a multi-host step in a world of one gloo
+    process and examples/render_sphere_torch.py's body; no module of any of
     them is loaded afterwards."""
     script = textwrap.dedent("""
         import sys
@@ -301,6 +303,33 @@ def test_port_needs_no_jax():
         _, g = fit.theta_gradient(sc, fit.THETA_INIT, photons, events,
                                   torch.zeros(32, 32, 4))
         assert np.isfinite(g) and g != 0.0
+
+        import torch.distributed as dist
+        from cpm_tpu_torch import entry
+        from cpm_tpu_torch.parallel import multihost, sharding
+        forward, (tiny_scene, tiny_state) = entry.entry(device="cpu")
+        assert bool(torch.isfinite(forward(tiny_scene, tiny_state)).all())
+        os.environ.update(MASTER_ADDR="127.0.0.1", RANK="0", WORLD_SIZE="1",
+                          MASTER_PORT=str(multihost.free_port()),
+                          GLOO_SOCKET_IFNAME="lo")
+        multihost.initialize_distributed("gloo")
+        mesh = sharding.make_mesh()
+        one = dataclasses.replace(state, light_samples=(
+            sharding.shard_light_samples(state.light_samples, mesh)))
+        _, img = sharding.sharded_full_step(scene, one, config, mesh)
+        assert bool(torch.isfinite(img).all())
+        grid2d = multihost.make_hosts_chips_mesh(1)
+        _, img = multihost.multihost_full_step(scene, one, config, grid2d)
+        assert bool(torch.isfinite(img).all())
+        dist.destroy_process_group()
+        spec = importlib.util.spec_from_file_location(
+            "render_sphere_torch",
+            os.path.join("examples", "render_sphere_torch.py"))
+        demo = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(demo)
+        out = demo.render_sphere("cpu", vol_dim=16, photons_side=16,
+                                 width=16)
+        assert float(out["image"][..., 3].max()) > 0.0
         assert splat_product.splat_product_grad_cuda.launches == 0
         assert splat_product.splat_product_direct.launches == 0
         assert splat_product.splat_product_tiled.launches == 0

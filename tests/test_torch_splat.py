@@ -228,6 +228,28 @@ def test_cuda_method_is_differentiable_in_the_powers():
                                rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
+def test_n_total_scales_the_kernel_path_as_the_plain_path():
+    """``n_total`` is applied to the powers before the dispatch, so the
+    kernel's wrapper (``method="cuda"``; the plain version for CPU
+    tensors) and the plain path get the same list; with the doubled count
+    the grid is half as bright, and it equals the reference's."""
+    jph, tph, _, _ = _photons(64, 2, seed=16, radius=0.09)
+    dim = (16, 16, 16)
+    got = {m: tsplat.splat_all(tph, dim, n_total=128, method=m)
+           for m in ("cuda", "matmul")}
+    torch.testing.assert_close(got["cuda"], got["matmul"], rtol=0, atol=0)
+    torch.testing.assert_close(
+        2.0 * got["cuda"], tsplat.splat_all(tph, dim, method="cuda"),
+        rtol=PRODUCT_RTOL, atol=PRODUCT_ATOL)
+    pos, pw = tsplat.product_deposits(tph, n_total=128)
+    torch.testing.assert_close(
+        got["cuda"], sp.splat_product(pos, pw, tph.radius_rel, dim),
+        rtol=0, atol=0)
+    want = jsplat.splat_all(jph, dim, n_total=128, method="matmul")
+    np.testing.assert_allclose(got["cuda"].numpy(), np.asarray(want),
+                               rtol=PRODUCT_RTOL, atol=PRODUCT_ATOL)
+
+
 @pytest.mark.parametrize("bad", ["float64", "shape", "strided"])
 def test_backward_wrapper_raises_on_a_grid_gradient_it_does_not_take(bad):
     pos, _ = _deposits(16, seed=12)
