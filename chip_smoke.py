@@ -6,8 +6,10 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero, printing
 no result, without them. It imports nothing but the port. In order it:
 
 1. prints the card's name and power limit;
-2. builds the sm_90a kernels from ``cpm_tpu_torch/csrc`` and prints the
-   build time and the compiler's resource report;
+2. builds both sm_90a libraries from ``cpm_tpu_torch/csrc`` at once, one
+   ``nvcc`` each (``splat_product.cu``; ``woodcock_trace.cu`` with
+   ``--fmad=false``), and prints the build time and each compiler's
+   resource report (``-Xptxas -v``: registers, spills);
 3. holds both designs of the splat kernel (direct and tiled) against the
    plain PyTorch version, and the binning kernels against the plain
    binning, on seeded inputs with ~30% unused slots at four shapes, which
@@ -39,6 +41,23 @@ no result, without them. It imports nothing but the port. In order it:
    frame's own deposits, and on those of traces at photon counts between,
    which is what the wrapper's threshold is held to; times each stage of
    the default frame with CUDA events;
+   Then the trace kernel (``csrc/woodcock_trace.cu``, one launch per
+   trace, one thread per lane): it is held against the wavefront loop
+   (``method="wavefront"``) lane by lane, bit for bit in at least 99.9%
+   of the lanes, with equal statistics and splatted light volumes within
+   1e-3 relative L1, on the default frame with each option (float16 at 2
+   interactions, no single scattering, ``return_stats``, a 64-slot tape, a
+   clip box), in chunks, on one rank's shard of 2 with global lane ids,
+   and on a correlated step's retrace of 6,656 lanes with their lane ids
+   (later also on a config 4 retrace and config 3's guided frame); both
+   are timed in turns (wavefront, kernel, kernel, wavefront) with the
+   kernel's device time from ``torch.profiler`` beside its bound; the
+   host waits of one trace (none) and of one with ``return_stats`` (one)
+   are counted in sync debug mode; a packed ``interactive_frame``
+   (``pipeline/packed.py``) is counted, held against the same frame
+   through the wavefront loop, its host waits named; and the frame, a
+   correlated step and the interactive frame are timed in turns through
+   the kernel and through the wavefront loop;
 6. drives the correlated update at the default frame, after a
    transfer-function edit (every opacity x 1.5), through ``step()`` with
    the launch counts set to 0 before and read after:
@@ -148,7 +167,10 @@ A failing phase raises; nothing is caught.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -173,6 +195,7 @@ from cpm_tpu_torch.core.scene import Scene
 from cpm_tpu_torch.core.types import TransferFunction, Volume, f32_scalar
 from cpm_tpu_torch.io import convert, synthetic
 from cpm_tpu_torch.kernels import splat_product as sp
+from cpm_tpu_torch.kernels import woodcock_trace as wt
 from cpm_tpu_torch.ops import (debug, emit, gather, intersect, minmax, mixer,
                                nee, replay, rng, sampling, score_grad,
                                screen_importance, select, splat, sweep_render,
@@ -180,7 +203,7 @@ from cpm_tpu_torch.ops import (debug, emit, gather, intersect, minmax, mixer,
 from cpm_tpu_torch.ops.importance import ImportanceWeights
 from cpm_tpu_torch.parallel import multihost as mh
 from cpm_tpu_torch.parallel import sharding as psh
-from cpm_tpu_torch.pipeline import step
+from cpm_tpu_torch.pipeline import packed, step
 from cpm_tpu_torch.pipeline import timevarying as tv
 from cpm_tpu_torch.pipeline.state import DirtyFlags
 
@@ -281,6 +304,35 @@ def compare(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
                                msg=lambda m: f"{what}: {m}")
     print(f"{what}: max_abs_err {err:.3e} (max |ref| {scale:.3e})")
     return err
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per lane (the first axis), True where every element is equal (NaN
+    equal to NaN)."""
+    eq = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return eq.reshape(eq.shape[0], -1).all(dim=1)
+
+
+def trace_lanes_differ(got, want) -> torch.Tensor:
+    """(N,) bool: the lanes where two results of ``trace_photons`` differ
+    in any bit: a deposit slot's position, power or direction (so the
+    deposit count and n_int), the exit power or direction, and, where both
+    carry an event tape, its count, types, positions and majorants."""
+    gp, gx = got if isinstance(got, tuple) else (got, None)
+    wp, wx = want if isinstance(want, tuple) else (want, None)
+    same = None
+    for f in ("positions", "powers", "directions"):
+        eq = _same_bits(getattr(gp, f).transpose(0, 1),
+                        getattr(wp, f).transpose(0, 1))
+        same = eq if same is None else same & eq
+    same &= _same_bits(gp.exit_power[:, None], wp.exit_power[:, None])
+    same &= _same_bits(gp.exit_direction, wp.exit_direction)
+    if isinstance(gx, tracer.TraceEvents) and isinstance(
+            wx, tracer.TraceEvents):
+        same &= gx.counts == wx.counts
+        for f in ("types", "positions", "majorants"):
+            same &= _same_bits(getattr(gx, f), getattr(wx, f))
+    return ~same
 
 
 def seeded_deposits(m: int, seed: int, sentinel_frac: float, device):
@@ -673,23 +725,30 @@ COUNTED = {"splat_product_direct": sp.splat_product_direct,
            "bin_deposits": sp.bin_deposits}
 
 
+TRACE = wt.trace_woodcock_cuda  # the trace kernel's wrapper
+
+
 def reset_counts() -> None:
     torch.cuda.synchronize()
-    for fn in (*COUNTED.values(), sp.splat_product_grad_cuda):
+    for fn in (*COUNTED.values(), sp.splat_product_grad_cuda, TRACE):
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTED.items()}
+    return {**{name: fn.launches for name, fn in COUNTED.items()},
+            "trace_woodcock_cuda": TRACE.launches}
 
 
-def expect_launches(what: str, launches: dict, designs: list) -> None:
+def expect_launches(what: str, launches: dict, designs: list,
+                    traces: int | None = None) -> None:
     """Raise unless the splat kernels were launched once for each entry of
     ``designs`` ("direct" or "tiled", with one binning per tiled launch)
-    and no more."""
+    and no more, and the trace kernel ``traces`` times (one trace per
+    splat unless given): every driven path traces through the kernel."""
     want = {"splat_product_direct": designs.count("direct"),
             "splat_product_tiled": designs.count("tiled"),
-            "bin_deposits": designs.count("tiled")}
+            "bin_deposits": designs.count("tiled"),
+            "trace_woodcock_cuda": len(designs) if traces is None else traces}
     if launches != want:
         raise AssertionError(f"{what}: expected the launches {want}, "
                              f"counted {launches}")
@@ -807,6 +866,307 @@ def counted_frame(what: str, dev, tag, reps: int, **frame) -> tuple:
     expect_frame(what, config, state, img, dev, launches)
     on_own = time_on_deposits(f"the {what}", state.photons, dim, reps, tag)
     return scene, config, state, img, launches, on_own
+
+
+# --- the trace kernel -----------------------------------------------------
+
+# The trace kernel against the wavefront loop on the card: at most this
+# share of a list's lanes may differ in any bit of a deposit, an exit or
+# the tape (expected 0: the kernel rounds as torch's operators do,
+# --fmad=false), and the light volumes splatted from the two traces agree
+# within this relative L1.
+TRACE_MAX_LANES_DIFFER = 1e-3
+TRACE_LV_REL_L1 = 1e-3
+TRACE_TURNS = ("wavefront", "cuda", "cuda", "wavefront")
+RETRACE_LANES = 6656  # a default correlated step's budget (10% of 65,536)
+TRACE_CHUNK = 16384
+CLIP_BOX = dict(clip_min=(0.1, 0.0, 0.2), clip_max=(0.9, 1.0, 0.8))
+RECORDS["trace"] = {"woodcock_trace_kernel": 1}
+
+
+@contextlib.contextmanager
+def traced_by(method: str):
+    """Every trace of the pipeline through ``method`` while inside: the
+    twin path (``"wavefront"``), timed beside the kernel's."""
+    saved = tracer.trace_photons, tracer.trace_photons_chunked
+    tracer.trace_photons = functools.partial(saved[0], method=method)
+    tracer.trace_photons_chunked = functools.partial(saved[1], method=method)
+    try:
+        yield
+    finally:
+        tracer.trace_photons, tracer.trace_photons_chunked = saved
+
+
+def trace_bound(c, n: int, flights: int, tape: int) -> dict:
+    """The least time of one trace on the card, the larger of: the bytes
+    it must move (the volume, the majorant and distance grids, the light
+    samples (44 B), the lane ids (8 B), the deposit slots (32 B each), the
+    exits (12 B) and the tape (20 B a slot)) at HBM_BYTES_PER_S, and its
+    operations (the active lane-flights this run's data needs, times
+    ``woodcock_trace.OPS_PER_FLIGHT``) at FP32_FLOP_PER_S."""
+    vol = math.prod(c.shape) * 4 + 2 * c.maj.numel() * 4
+    nbytes = vol + n * (44 + 8 + 12 + 20 * tape) \
+        + c.max_interactions * n * 32
+    ops = flights * wt.OPS_PER_FLIGHT
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return {"bytes": nbytes, "operations": ops,
+            "active_lane_flights": flights,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_trace(what: str, scene, samples, key, tcfg, dim, tag, *,
+                lane_ids=None, chunk=None, timed=False, **opts) -> dict:
+    """The trace kernel against the wavefront loop on one list of light
+    samples, through ``trace_photons`` (or ``trace_photons_chunked`` in
+    chunks of ``chunk``) with ``method`` named: lanes that differ in any
+    bit (at most TRACE_MAX_LANES_DIFFER of them), the statistics equal
+    where asked for, the light volumes splatted from both within
+    TRACE_LV_REL_L1, one launch per trace (per chunk). With ``timed``,
+    both in turns (TRACE_TURNS, CUDA events around the whole call), the
+    kernel's device time (``torch.profiler``) and its bound."""
+    args = (scene.volume, scene.tf, scene.tf_scattering, samples, key, tcfg)
+
+    def trace(method, **kw):
+        if chunk:
+            return tracer.trace_photons_chunked(*args, chunk,
+                                                lane_ids=lane_ids,
+                                                method=method)
+        return tracer.trace_photons(*args, lane_ids=lane_ids, method=method,
+                                    **{**opts, **kw})
+
+    n = samples.n
+    torch.cuda.synchronize()
+    before = TRACE.launches
+    got = trace("cuda")
+    torch.cuda.synchronize()
+    launches = TRACE.launches - before
+    want = trace("wavefront")
+    torch.cuda.synchronize()
+    if TRACE.launches - before != launches or launches != (
+            -(-n // chunk) if chunk else 1):
+        raise AssertionError(f"{what}: {launches} kernel launches")
+    differ = int(trace_lanes_differ(got, want).sum())
+    gp, wp = (r[0] if isinstance(r, tuple) else r for r in (got, want))
+    lv_got = splat.splat_all(gp, dim, method="cuda")
+    lv_want = splat.splat_all(wp, dim, method="cuda")
+    err = rel_l1(lv_got, lv_want)
+    abs_err = float((lv_got - lv_want).abs().max())
+    deposited = int(used_slots(gp).sum())
+    msg = ""
+    stats_equal = True
+    if opts.get("return_stats"):
+        g, w = got[1], want[1]
+        stats_equal = (g["wavefront_iters"] == w["wavefront_iters"]
+                       and torch.equal(g["active_history"],
+                                       w["active_history"])
+                       and torch.equal(g["mean_active_frac"],
+                                       w["mean_active_frac"])
+                       and g["stage_widths"] == w["stage_widths"])
+        msg = (f"; statistics equal {stats_equal} ({g['wavefront_iters']} "
+               f"flights, mean active fraction "
+               f"{float(g['mean_active_frac']):.6f})")
+    if opts.get("record_events"):
+        msg += f"; {int(got[1].counts.sum())} tests on the tape"
+    print(f"trace kernel vs wavefront, {what}: {differ} of {n} lanes differ "
+          f"in any bit, {deposited} deposits, light volume rel L1 "
+          f"{err:.3e}, {launches} launch(es){msg} ({tag})")
+    if differ > TRACE_MAX_LANES_DIFFER * n or not err <= TRACE_LV_REL_L1 \
+            or not stats_equal or deposited <= 0:
+        raise AssertionError(f"{what}: the kernel disagrees with the "
+                             "wavefront loop")
+    res = {"lanes": n, "lanes_differing": differ, "deposits": deposited,
+           "light_volume_rel_l1": err, "max_abs_err": abs_err,
+           "launches": launches}
+    if not timed:
+        return res
+    runs = [(m, cuda_ms(lambda m=m: trace(m), reps=2)) for m in TRACE_TURNS]
+    dev_ms = device_ms("trace", lambda: trace("cuda"), reps=3)
+    if dev_ms == 0.0:
+        raise AssertionError("torch.profiler showed no device time")
+    _, stats = trace("cuda", return_stats=True)
+    flights = int(stats["active_history"].sum())
+    c = tracer.trace_constants(scene.volume, scene.tf, scene.tf_scattering,
+                               tcfg)
+    bound = trace_bound(c, n, flights, opts.get("record_events", 0))
+    plain = statistics.median(t for m, t in runs if m == "wavefront")
+    call = statistics.median(t for m, t in runs if m == "cuda")
+    print(f"trace {what}: in turns " + ", ".join(
+        f"{m} {t:.3f} ms" for m, t in runs)
+        + f"; kernel device time {dev_ms:.4f} ms, bound {bound['bound_ms']:.4f}"
+        f" ms ({bound['bound_by']}: {bound['bytes']} B, "
+        f"{bound['active_lane_flights']} active lane-flights, "
+        f"{stats['wavefront_iters']} flights) ({tag})")
+    res.update({"ms": dev_ms, "call_ms": call, "plain_ms": plain,
+                "in_turns": runs, "flights": stats["wavefront_iters"],
+                "mean_active_frac": float(stats["mean_active_frac"]),
+                **bound})
+    return res
+
+
+def trace_kernel_phase(scene, config, state, dev, tag) -> dict:
+    """The trace kernel at the default frame: the compiler's report; the
+    kernel against the wavefront loop, lane by lane, with each option
+    (float16 at 2 interactions, no single scattering, the statistics, a
+    64-slot tape), on a correlated step's retrace of 6,656 lanes with their
+    lane ids, with a clip box, in chunks, and on one rank's shard of 2
+    with global lane ids; the default frame's and the retrace's times in
+    turns with the wavefront; the host waits of one trace (none) and with
+    the statistics (one, the read of the flights); then frames, a
+    correlated step and a packed interactive frame through the kernel and
+    through the wavefront loop in turns, and the host waits of one
+    interactive frame, each named."""
+    t0 = time.perf_counter()
+    dim = step.light_volume_shape(config)
+    samples = state.light_samples
+    key = rng.fold_in(state.key, 0)
+    tc = config.tracer
+    res = {}
+    res["default frame"] = check_trace(
+        "default frame (65536 lanes x 4 interactions, 128^3)", scene,
+        samples, key, tc, dim, tag, timed=True)
+    for name, extra, opts in (
+            ("float16, 2 interactions",
+             dict(photon_dtype="float16", max_interactions=2), {}),
+            ("no single scattering", dict(no_single_scattering=True), {}),
+            ("return_stats", {}, dict(return_stats=True)),
+            (f"{GRAD_TAPE}-slot tape", {}, dict(record_events=GRAD_TAPE)),
+            ("clip box", CLIP_BOX, {})):
+        res[name] = check_trace(f"default frame, {name}", scene, samples,
+                                key, dataclasses.replace(tc, **extra), dim,
+                                tag, **opts)
+    res["chunked"] = check_trace(
+        f"default frame in chunks of {TRACE_CHUNK}", scene, samples, key, tc,
+        dim, tag, chunk=TRACE_CHUNK)
+    half = samples.n // 2
+    shard = dataclasses.replace(
+        samples, origins=samples.origins[half:],
+        directions=samples.directions[half:], powers=samples.powers[half:],
+        tspan=samples.tspan[half:])
+    res["shard"] = check_trace(
+        "rank 1's shard of 2 (global lane ids)", scene, shard, key, tc, dim,
+        tag, lane_ids=torch.arange(half, samples.n, device=dev))
+
+    # A correlated step's retrace: the first batch after the TF edit (the
+    # step's own selection), its lanes' own ids, on the edited scene.
+    edited = edit_tf(scene)
+    grid = step.build_importance_grid(edited, config)
+    first = step.step(edited, state, config, DirtyFlags(tf=True), grid)
+    budget = step.recompute_budget(config, samples.n)
+    imp = step.recompute_importance(config, grid, state.photons, samples)
+    indices, valid, _ = select.select_photons_to_recompute(imp, budget)
+    sub, safe = step.selected_samples(samples, indices, valid)
+    if sub.n != RETRACE_LANES:
+        raise AssertionError(f"a batch of {sub.n} lanes")
+    res["retrace"] = check_trace(
+        f"retrace of {RETRACE_LANES} lanes (their lane ids)", edited, sub,
+        key, tc, dim, tag, lane_ids=safe, timed=True)
+
+    # Host waits of one trace, by source line.
+    waits = {}
+    for name, opts in (("trace", {}), ("trace with return_stats",
+                                       dict(return_stats=True))):
+        waits[name] = host_waits(lambda opts=opts: tracer.trace_photons(
+            scene.volume, scene.tf, scene.tf_scattering, samples, key, tc,
+            **opts))
+        print(f"host waits of one {name} on the kernel path: "
+              f"{sum(waits[name].values())} ("
+              + (", ".join(f"{w} x{c}" for w, c in waits[name].items())
+                 or "none") + f") ({tag})")
+    if sum(waits["trace"].values()) != 0 or sum(
+            waits["trace with return_stats"].values()) > 1:
+        raise AssertionError("the kernel path waits for the card")
+
+    # End to end, kernel against the twin path, in turns.
+    packed_state = packed.pack_state(state)
+
+    def frame():
+        return run_frame(scene, config)
+
+    def correlated():
+        return step.step(edited, state, config, DirtyFlags(tf=True), grid)
+
+    def interactive():
+        return packed.interactive_frame(edited, packed_state, scene.camera,
+                                        grid, config, budget,
+                                        fresh_round=True)
+
+    reset_counts()
+    got, img = interactive()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect_launches("interactive_frame", launches, [sp.choose_design(
+        2 * tc.max_interactions * budget, f32_scalar(tc.radius_rel), dim)])
+    with traced_by("wavefront"):
+        want, want_img = interactive()
+    after = packed.unpack_state(got)
+    differ = int(_same_bits(got.photon_soa.transpose(0, 1),
+                            want.photon_soa.transpose(0, 1)).logical_not()
+                 .sum())
+    lv_err = rel_l1(got.light_volume, want.light_volume)
+    print(f"interactive_frame, kernel vs wavefront: {differ} of "
+          f"{samples.n} lanes differ in any bit, light volume rel L1 "
+          f"{lv_err:.3e}, image max_abs_err "
+          f"{float((img - want_img).abs().max()):.3e} ({tag})")
+    if (differ > TRACE_MAX_LANES_DIFFER * samples.n
+            or not lv_err <= TRACE_LV_REL_L1
+            or after.n_remaining != first.n_remaining
+            or not torch.equal(after.retraced, first.retraced)
+            or not bool(torch.isfinite(img).all())):
+        raise AssertionError("interactive_frame: the kernel's frame is not "
+                             "the wavefront's")
+    frame_waits = host_waits(interactive)
+    step_waits = host_waits(correlated)
+    print(f"interactive_frame: launches {launches}; host waits "
+          f"{sum(frame_waits.values())} ("
+          + ", ".join(f"{w} x{c}" for w, c in frame_waits.items())
+          + f"); a correlated step through step() "
+          f"{sum(step_waits.values())} ({tag})")
+    turns = {}
+    for name, fn in (("frame (full_trace_step + render_state)", frame),
+                     ("correlated_step (step(), TF edit)", correlated),
+                     ("interactive_frame", interactive)):
+        runs = []
+        for m in TRACE_TURNS:
+            with traced_by(m):
+                runs.append((m, cuda_ms(fn, reps=2)))
+        turns[name] = runs
+        print(f"{name} in turns: " + ", ".join(
+            f"{m} {t:.3f} ms" for m, t in runs) + f" ({tag})")
+    print(f"the trace kernel phase took {time.perf_counter() - t0:.1f} s")
+    return {"lists": res, "host_waits": {k: dict(v) for k, v in
+                                         waits.items()},
+            "interactive_frame": {"launches": launches,
+                                  "host_waits": dict(frame_waits),
+                                  "correlated_step_host_waits":
+                                      dict(step_waits)},
+            "end_to_end_in_turns": turns}
+
+
+def trace_row(phase: dict, main_launches: int, extra: dict) -> dict:
+    """The ``kernels`` row of the trace kernel: its numbers at the default
+    frame, launches from the counted default frame, every list's
+    comparison and the other lists' times under ``lists``."""
+    d = phase["lists"]["default frame"]
+    return {
+        "name": "trace_woodcock_cuda", "route": "cuda",
+        "source": "cpm_tpu_torch/csrc/woodcock_trace.cu",
+        "replaces": "cpm_tpu/ops/tracer.py:255",
+        "replaces_note": "no Pallas kernel: the lax.while_loop of "
+                         "trace_photons (:255-601) with its brick table "
+                         "and staged compaction",
+        "caller": "full_trace_step (default frame), and every trace",
+        "launches": main_launches, "held_against_plain": True,
+        "max_abs_err": d["max_abs_err"],
+        "max_abs_err_of": "the light volume splatted from the kernel's "
+                          "trace against the wavefront's",
+        "lanes_differing": d["lanes_differing"], "ms": d["ms"],
+        "plain_ms": d["plain_ms"], "call_ms": d["call_ms"],
+        "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "library_ms": None, "lists": {**phase["lists"], **extra},
+        "host_waits": phase["host_waits"],
+        "interactive_frame": phase["interactive_frame"],
+        "end_to_end_in_turns": phase["end_to_end_in_turns"]}
 
 
 # --- the correlated update ------------------------------------------------
@@ -1111,7 +1471,8 @@ def correlated_large(scene, config, state, dev, tag) -> dict:
           f"{state.photons.n} photons, {after.n_remaining} remain, "
           f"{ms:.1f} ms; two splats of {half} slots -> {dim}, designs "
           f"{designs}, launches {launches} ({tag})")
-    expect_launches("large correlated_step_scalable", launches, designs)
+    expect_launches("large correlated_step_scalable", launches, designs,
+                    traces=1)
     if after.light_volume.device != dev or not bool(
             torch.isfinite(after.light_volume).all()):
         raise AssertionError("large correlated step: non-finite light "
@@ -1309,6 +1670,16 @@ def playback_config4(dev, tag) -> dict:
             config.tracer, lane_ids=safe)
 
     merged = tracer.merge_recomputed(old, retrace(), indices, valid)
+    trace_check = check_trace(
+        f"config 4 step 1 retrace of {budget} lanes", scene1, sub, key,
+        config.tracer, dim, tag, lane_ids=safe, timed=True)
+    step_in_turns = []
+    for m in TRACE_TURNS:
+        with traced_by(m):
+            step_in_turns.append((m, cuda_ms(lambda: tv.advance_time(
+                scene, before, seq, 1.0, config), reps=2)))
+    print("config 4 advance_time in turns: " + ", ".join(
+        f"{m} {t:.3f} ms" for m, t in step_in_turns) + f" ({tag})")
     stages = {
         "sequence_sample (mix)": lambda: mixer.sequence_sample(
             seq.volumes, 1.5),
@@ -1344,7 +1715,8 @@ def playback_config4(dev, tag) -> dict:
     torch.cuda.empty_cache()
     return {"launches": dict(launches), "steps": steps, "drains": drains,
             "host_waits": total, "on_delta": on_delta, "prepare_ms": prep_ms,
-            "stage_ms": stage_ms, "trace_stats": stats}
+            "stage_ms": stage_ms, "trace_stats": stats,
+            "trace_check": trace_check, "step_in_turns": step_in_turns}
 
 
 def check_small_playback(dev) -> None:
@@ -1436,6 +1808,10 @@ def guided_config3(dev, tag) -> dict:
     on_frame, _ = check_on_list(
         f"the {pos.shape[0]} deposit slots of the config 3 guided frame",
         pos, pw, state.photons.radius_rel, dim, 50, tag)
+    trace_check = check_trace(
+        f"config 3 guided frame ({state.light_samples.n} lanes, 256^3)",
+        scene, state.light_samples, rng.fold_in(state.key, 0),
+        guided.tracer, dim, tag, timed=True)
     stages = {
         "build_importance_grid": lambda: step.build_importance_grid(
             scene, config),
@@ -1521,7 +1897,7 @@ def guided_config3(dev, tag) -> dict:
     return {"launches": frame_launches, "on_frame": on_frame,
             "stage_ms": stage_ms, "variance_uniform": var_u,
             "variance_guided": var_g, "bias": bias, "tick_ms": tick_ms,
-            "debug_image_ms": image_ms}
+            "debug_image_ms": image_ms, "trace_check": trace_check}
 
 
 # Every other light type and the Hilbert order at the default scene.
@@ -1813,7 +2189,8 @@ def no_single_scattering_frame(dev, tag) -> dict:
 
 def trace_stats(what: str, trace, k: int, tag) -> dict:
     """``trace(return_stats)`` with the statistics on and off: the photons
-    are equal bit for bit, the stats add no host wait, the active history's
+    are equal bit for bit, the stats add at most one host wait (the
+    kernel's path reads the flights back once), the active history's
     last nonzero slot is one of the last group of ``k`` flights (the loop
     tests for active lanes once a group; a group's later flights may find
     none), or 511 once the flights outnumber the slots, and its sum over
@@ -1844,8 +2221,9 @@ def trace_stats(what: str, trace, k: int, tag) -> dict:
     if last not in want:
         raise AssertionError(f"{what}: the history's last nonzero slot is "
                              f"{last}, not one of {want}")
-    if waits[True] > waits[False]:
-        raise AssertionError(f"{what}: the statistics add host waits")
+    if waits[True] > waits[False] + 1:
+        raise AssertionError(f"{what}: the statistics add more than the "
+                             "one host wait that reads the flights")
     if stats["stage_widths"] != [n] or not 0.0 < frac <= 1.0 or not math.isclose(
             float(hist.sum()) / (max(iters, 1) * n), frac, rel_tol=1e-6):
         raise AssertionError(f"{what}: inconsistent statistics")
@@ -2921,9 +3299,29 @@ def demo_config1(dev, tag) -> dict:
     on_list, ref = check_on_list("the config 1 demo's deposits", pos, pw,
                                  photons.radius_rel, dim, 20, tag)
     compare(lv, ref, "config 1 demo: light volume (kernel) vs plain splat")
+    # The shape of the demo's trace (its scene, samples and key, as
+    # render_sphere builds them): flights and the mean active fraction.
+    volume = Volume.from_data(synthetic.sphere_in_box(64))
+    tf = TransferFunction.from_points(*synthetic.default_tf_points())
+    tfs = TransferFunction.from_points(*synthetic.default_scattering_points())
+    cfg = TracerConfig(max_interactions=4)
+    again, stats = tracer.trace_photons(volume, tf, tfs, out["light_samples"],
+                                        rng.prng_key(7), cfg,
+                                        return_stats=True)
+    if not torch.equal(again.positions, photons.positions):
+        raise AssertionError("the demo's trace is not reproduced")
+    trace_ms = cuda_ms(lambda: tracer.trace_photons(
+        volume, tf, tfs, out["light_samples"], rng.prng_key(7), cfg), reps=3)
+    demo_stats = {"flights": stats["wavefront_iters"],
+                  "mean_active_frac": float(stats["mean_active_frac"]),
+                  "trace_ms": trace_ms}
+    print(f"config 1 demo's trace: {demo_stats['flights']} flights, mean "
+          f"active fraction {demo_stats['mean_active_frac']:.6f}, "
+          f"{trace_ms:.3f} ms ({tag})")
     return {"on_list": on_list, "launches": launches, "wall_s": wall,
             "first_ms": out["first_ms"], "steady_ms": out["steady_ms"],
-            "deposited": deposited, "alpha_max": alpha}
+            "deposited": deposited, "alpha_max": alpha,
+            "trace_stats": demo_stats}
 
 
 def kernel_rows(shapes: dict, default_launches: dict,
@@ -3037,11 +3435,17 @@ def main() -> None:
     print(sys.version.split()[0], "torch", torch.__version__, "cuda",
           torch.version.cuda)
 
+    # Both libraries at once, one nvcc each; the compiler's resource report
+    # (registers, spills) of each.
     t0 = time.perf_counter()
-    _, log = sp.build()
-    print(f"built {sp.SOURCE.name} for sm_90a in "
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [(mod.SOURCE.name, pool.submit(mod.build))
+                  for mod in (sp, wt)]
+        for name, fut in builds:
+            _, log = fut.result()
+            print(f"{name} (-Xptxas -v):\n{log.strip()}")
+    print(f"built {', '.join(name for name, _ in builds)} for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s")
-    print(log.strip())
 
     shapes = check_kernels(dev, tag)
 
@@ -3070,6 +3474,10 @@ def main() -> None:
     for name, fn in stages.items():
         print(f"stage {name}: {cuda_ms(fn, reps=3):.3f} ms ({tag})")
     del img, ph, samples, stages
+
+    # --- the trace kernel against its plain version, timed, and the host
+    # waits of a trace and of a packed interactive frame ---
+    traced = trace_kernel_phase(scene, config, state, dev, tag)
 
     # --- the correlated update at the default frame, counted ---
     correlated = correlated_default(scene, config, state, dev, tag)
@@ -3252,6 +3660,12 @@ def main() -> None:
     rows[0]["trace_stats"] = {"default frame": stats,
                               "config 4 step retrace": playback[
                                   "trace_stats"]}
+    rows.append(trace_row(
+        traced, launches["trace_woodcock_cuda"],
+        {"config 4 step 1 retrace": playback["trace_check"],
+         "config 3 guided frame": guided["trace_check"]}))
+    rows[-1]["config 4 advance_time in turns"] = playback["step_in_turns"]
+    rows[-1]["config 1 demo trace"] = demo["trace_stats"]
     for row in rows:
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']} was launched by no driven "

@@ -150,14 +150,20 @@ class TransferFunction:
 
     def sample_opacity(self, x: Tensor) -> Tensor:
         """Opacity channel only (``cpm_tpu/core/types.py:124-139``)."""
-        p, c = self.positions, self.colors[:, 3]
-        acc = c[0].expand(x.shape)
-        for s in range(p.shape[0] - 1):
-            t = (x - p[s]) / torch.clamp(p[s + 1] - p[s], min=1e-12)
-            t = clip(t, 0.0, 1.0)
-            seg = c[s] + (c[s + 1] - c[s]) * t
-            acc = torch.where(x >= p[s], seg, acc)
-        return acc
+        return piecewise_opacity(self.positions, self.colors[:, 3], x)
+
+
+def piecewise_opacity(p: Tensor, c: Tensor, x: Tensor) -> Tensor:
+    """The piecewise-linear opacity of the point list (positions ``p``,
+    opacities ``c``) at ``x``, edge values clamped: segment after segment,
+    each where ``x >= p[s]``."""
+    acc = c[0].expand(x.shape)
+    for s in range(p.shape[0] - 1):
+        t = (x - p[s]) / torch.clamp(p[s + 1] - p[s], min=1e-12)
+        t = clip(t, 0.0, 1.0)
+        seg = c[s] + (c[s + 1] - c[s]) * t
+        acc = torch.where(x >= p[s], seg, acc)
+    return acc
 
 
 @dataclass

@@ -5,8 +5,8 @@ with the CUDA source, and the plain PyTorch versions.
 It replaces ``cpm_tpu/pallas/splat_mxu.py:_splat_kernel``. The source is
 compiled with ``nvcc`` for ``sm_90a`` at first use into a shared library
 with a plain C interface under ``cpm_tpu_torch/build/`` and loaded with
-ctypes. Nothing is built or imported for CUDA when this module is
-imported.
+ctypes, by the port's one build routine (``kernels/_build.py``). Nothing
+is built or imported for CUDA when this module is imported.
 
 :func:`splat_product` takes CPU tensors to :func:`splat_product_torch` and
 CUDA tensors to one of two kernel designs, chosen from the deposits per
@@ -29,11 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -41,6 +37,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from cpm_tpu_torch.core.types import full_fp32_matmul
+from cpm_tpu_torch.kernels import _build
 
 Tensor = torch.Tensor
 
@@ -48,11 +45,8 @@ Tensor = torch.Tensor
 # mass (r^3), so both deposit the same expected irradiance.
 PRODUCT_KERNEL_MATCH = 0.4 * math.pi
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "splat_product.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _build.CSRC / "splat_product.cu"
+NVCC_FLAGS = _build.BASE_FLAGS
 
 
 def inverse_radius(radius_rel: float) -> np.float32:
@@ -256,36 +250,10 @@ def bin_deposits_torch(positions: Tensor, out_dim: tuple):
     return counts, offsets, order
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None:
-        from torch.utils.cpp_extension import CUDA_HOME
-        if CUDA_HOME is None:
-            raise RuntimeError("nvcc not found: no CUDA toolkit on PATH or "
-                               "CUDA_HOME")
-        path = os.path.join(CUDA_HOME, "bin", "nvcc")
-    return path
-
-
-@functools.cache
 def build() -> tuple[Path, str]:
     """Compile the kernel (once per source version) and return the shared
     library's path and the compiler's log."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"splat_product_{tag}.so"
-    log = ""
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)],
-                              capture_output=True, text=True, timeout=600)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE}:\n{log}")
-        os.replace(tmp, lib)
-    return lib, log
+    return _build.build(SOURCE, NVCC_FLAGS)
 
 
 @functools.cache

@@ -45,8 +45,8 @@ def build_majorant_grid(volume: Volume, tf: TransferFunction,
                         cell_size: int = 8, rings: int = 1) -> Tensor:
     """(gz, gy, gx) per-cell majorant opacity over the ``rings``-dilated
     per-cell data range."""
-    mm = minmax_mod.volume_min_max(volume, cell_size)
-    mins, maxs = dilate_min_max(mm.data[..., 0], mm.data[..., 1], rings)
+    mm = minmax_mod.sequence_min_max(volume.data, cell_size)
+    mins, maxs = dilate_min_max(mm[..., 0], mm[..., 1], rings)
     return torch.clamp(opacity_range_max(tf, mins, maxs), min=0.0)
 
 

@@ -29,12 +29,10 @@ def _pool_max(x: Tensor, cell: int) -> Tensor:
 def volume_min_max(volume: Volume, cell_size: int = 8) -> UniformGrid3D:
     """(gz, gy, gx, 2) per-cell (min, max) with gz = ceil(D / cell_size)."""
     data = volume.data
-    mins = -_pool_max(-data, cell_size)
-    maxs = _pool_max(data, cell_size)
     d, h, w = data.shape
     dev = data.device
     return UniformGrid3D(
-        data=torch.stack([mins, maxs], dim=-1),
+        data=sequence_min_max(data, cell_size),
         cell_dim=torch.full((3,), float(cell_size), device=dev),
         volume_dim=torch.tensor([w, h, d], dtype=torch.float32, device=dev),
     )
@@ -42,6 +40,7 @@ def volume_min_max(volume: Volume, cell_size: int = 8) -> UniformGrid3D:
 
 def sequence_min_max(volumes: Tensor, cell_size: int = 8) -> Tensor:
     """(T, D, H, W) sequence -> (T, gz, gy, gx, 2) per-cell (min, max) of
-    every step, in one batched pass."""
+    every step, in one batched pass; a (D, H, W) volume gives its
+    (gz, gy, gx, 2) grid. Device work only: nothing is uploaded."""
     return torch.stack([-_pool_max(-volumes, cell_size),
                         _pool_max(volumes, cell_size)], dim=-1)

@@ -181,8 +181,9 @@ def test_port_needs_no_jax():
     spans, the debug image, a u3d file, trajectory gradients from an event
     tape, one gradient of examples/fit_tf_torch.py, the entry point's
     forward, a sharded and a multi-host step in a world of one gloo
-    process and examples/render_sphere_torch.py's body; no module of any of
-    them is loaded afterwards."""
+    process, examples/render_sphere_torch.py's body and one packed
+    ``interactive_frame``; no module of any of them is loaded afterwards,
+    and no kernel was launched."""
     script = textwrap.dedent("""
         import sys
         blocked = ("jax", "jaxlib", "flax", "cpm_tpu")
@@ -330,6 +331,17 @@ def test_port_needs_no_jax():
         out = demo.render_sphere("cpu", vol_dim=16, photons_side=16,
                                  width=16)
         assert float(out["image"][..., 3].max()) > 0.0
+        from cpm_tpu_torch.kernels import woodcock_trace
+        from cpm_tpu_torch.pipeline import packed
+        frame, img = packed.interactive_frame(
+            scene, packed.pack_state(state), scene.camera, grid, config,
+            step.recompute_budget(config, state.photons.n),
+            fresh_round=True)
+        assert tuple(img.shape) == (16, 16, 4)
+        assert bool(torch.isfinite(img).all())
+        assert packed.unpack_state(frame).recompute_phase == (
+            state.recompute_phase + 1)
+        assert woodcock_trace.trace_woodcock_cuda.launches == 0
         assert splat_product.splat_product_grad_cuda.launches == 0
         assert splat_product.splat_product_direct.launches == 0
         assert splat_product.splat_product_tiled.launches == 0
