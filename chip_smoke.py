@@ -6,10 +6,10 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero, printing
 no result, without them. It imports nothing but the port. In order it:
 
 1. prints the card's name and power limit;
-2. builds both sm_90a libraries from ``cpm_tpu_torch/csrc`` at once, one
-   ``nvcc`` each (``splat_product.cu``; ``woodcock_trace.cu`` with
-   ``--fmad=false``), and prints the build time and each compiler's
-   resource report (``-Xptxas -v``: registers, spills);
+2. builds the three sm_90a libraries from ``cpm_tpu_torch/csrc`` at once,
+   one ``nvcc`` each (``splat_product.cu``; ``woodcock_trace.cu`` and
+   ``sweep_scan.cu`` with ``--fmad=false``), and prints the build time and
+   each compiler's resource report (``-Xptxas -v``: registers, spills);
 3. holds both designs of the splat kernel (direct and tiled) against the
    plain PyTorch version, and the binning kernels against the plain
    binning, on seeded inputs with ~30% unused slots at four shapes, which
@@ -58,6 +58,28 @@ no result, without them. It imports nothing but the port. In order it:
    through the wavefront loop, its host waits named; and the frame, a
    correlated step and the interactive frame are timed in turns through
    the kernel and through the wavefront loop;
+   Then the sweep kernels (``csrc/sweep_scan.cu``: the forward, one launch
+   per sweep, one thread per intermediate ray; the backward, one launch
+   per gradient through a sweep): the forward against the plain loop
+   (``method="torch"``) on the intermediate images and the image, within
+   rtol 1e-4, atol 1e-6 of the largest value, on the default frame, the
+   eye-inside camera (two sweeps), rank 1 of 2's columns and a strided
+   fifth of them (154, the last block ragged; each equal bit for bit to
+   the whole scan's columns), later also on config 3's guided frame, the
+   float16 frame and the float16 light volume at 4 interactions, whose
+   +inf texels give NaN where the plain loop's products do (NaN held
+   equal, the NaN pixels of both images counted and equal); its device
+   time (``torch.profiler``) beside its bound on the frame, the eye inside
+   and config 3; ``entry.entry``'s forward, counted; the backward
+   (through ``SweepScan``) against autograd through the plain loop on the
+   frame's image loss and tests/test_torch_grad.py's sweep loss, within
+   rtol 1e-3, atol 1e-5 of each gradient's largest component, and alone
+   against its plain version (``_scan_planes_grad_torch``), timed beside
+   its bound; render_state, the frame and the interactive frame in turns
+   (plain loop, kernels, kernels, plain loop), and the host waits of one
+   render in each form (the kernels' no more than the plain loop's). Every
+   driven path's launch counts include both sweep kernels: the forward
+   once per sweep render, the backward once per gradient through one;
 6. drives the correlated update at the default frame, after a
    transfer-function edit (every opacity x 1.5), through ``step()`` with
    the launch counts set to 0 before and read after:
@@ -186,6 +208,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from cpm_tpu_torch import entry as port_entry
 from cpm_tpu_torch.core.camera import Camera
 from cpm_tpu_torch.core.config import (PipelineConfig, RecomputeConfig,
                                        RenderConfig, SplatConfig,
@@ -195,6 +218,7 @@ from cpm_tpu_torch.core.scene import Scene
 from cpm_tpu_torch.core.types import TransferFunction, Volume, f32_scalar
 from cpm_tpu_torch.io import convert, synthetic
 from cpm_tpu_torch.kernels import splat_product as sp
+from cpm_tpu_torch.kernels import sweep_scan as ss
 from cpm_tpu_torch.kernels import woodcock_trace as wt
 from cpm_tpu_torch.ops import (debug, emit, gather, intersect, minmax, mixer,
                                nee, replay, rng, sampling, score_grad,
@@ -726,29 +750,40 @@ COUNTED = {"splat_product_direct": sp.splat_product_direct,
 
 
 TRACE = wt.trace_woodcock_cuda  # the trace kernel's wrapper
+# The sweep kernels' wrappers: the forward once per sweep (two for an eye
+# inside the volume's slab range), the backward once per gradient.
+SWEEP_FWD, SWEEP_BWD = ss.sweep_scan_forward, ss.sweep_scan_backward
 
 
 def reset_counts() -> None:
     torch.cuda.synchronize()
-    for fn in (*COUNTED.values(), sp.splat_product_grad_cuda, TRACE):
+    for fn in (*COUNTED.values(), sp.splat_product_grad_cuda, TRACE,
+               SWEEP_FWD, SWEEP_BWD):
         fn.launches = 0
 
 
 def read_counts() -> dict:
     return {**{name: fn.launches for name, fn in COUNTED.items()},
-            "trace_woodcock_cuda": TRACE.launches}
+            "trace_woodcock_cuda": TRACE.launches,
+            "sweep_scan_forward": SWEEP_FWD.launches,
+            "sweep_scan_backward": SWEEP_BWD.launches}
 
 
 def expect_launches(what: str, launches: dict, designs: list,
-                    traces: int | None = None) -> None:
+                    traces: int | None = None, sweeps: int = 0,
+                    sweep_grads: int = 0) -> None:
     """Raise unless the splat kernels were launched once for each entry of
     ``designs`` ("direct" or "tiled", with one binning per tiled launch)
-    and no more, and the trace kernel ``traces`` times (one trace per
-    splat unless given): every driven path traces through the kernel."""
+    and no more, the trace kernel ``traces`` times (one trace per splat
+    unless given), the sweep's forward kernel ``sweeps`` times and its
+    backward ``sweep_grads`` times: every driven path traces and renders
+    through the kernels."""
     want = {"splat_product_direct": designs.count("direct"),
             "splat_product_tiled": designs.count("tiled"),
             "bin_deposits": designs.count("tiled"),
-            "trace_woodcock_cuda": len(designs) if traces is None else traces}
+            "trace_woodcock_cuda": len(designs) if traces is None else traces,
+            "sweep_scan_forward": sweeps,
+            "sweep_scan_backward": sweep_grads}
     if launches != want:
         raise AssertionError(f"{what}: expected the launches {want}, "
                              f"counted {launches}")
@@ -821,7 +856,8 @@ def expect_frame(what: str, config, state, img, dev, launches) -> None:
     slots = state.photons.positions.shape[0] * state.photons.positions.shape[1]
     dim = step.light_volume_shape(config)
     expect_launches(what, launches, [sp.choose_design(
-        slots, state.photons.radius_rel, dim)])
+        slots, state.photons.radius_rel, dim)],
+        sweeps=int(config.render.method == "sweep"))
     deposited = int((state.photons.positions[..., 0] < 1e30).sum())
     lv = state.light_volume
     alpha = float(img[..., 3].max())
@@ -1096,7 +1132,8 @@ def trace_kernel_phase(scene, config, state, dev, tag) -> dict:
     torch.cuda.synchronize()
     launches = read_counts()
     expect_launches("interactive_frame", launches, [sp.choose_design(
-        2 * tc.max_interactions * budget, f32_scalar(tc.radius_rel), dim)])
+        2 * tc.max_interactions * budget, f32_scalar(tc.radius_rel), dim)],
+        sweeps=1)
     with traced_by("wavefront"):
         want, want_img = interactive()
     after = packed.unpack_state(got)
@@ -1167,6 +1204,415 @@ def trace_row(phase: dict, main_launches: int, extra: dict) -> dict:
         "host_waits": phase["host_waits"],
         "interactive_frame": phase["interactive_frame"],
         "end_to_end_in_turns": phase["end_to_end_in_turns"]}
+
+
+# --- the sweep's plane scan -----------------------------------------------
+
+# The sweep kernels against the plain loop on the card. The forward to
+# rtol 1e-4, atol 1e-6 of the largest value, NaN where the plain loop has
+# NaN: the plain loop samples through torch.matmul, whose sums round in
+# the library's own way, and the kernel rounds each operation on its own
+# (--fmad=false). The backward to rtol 1e-3, atol 1e-5 of the largest
+# component: its atomics reorder the sums.
+SWEEP_RTOL, SWEEP_ATOL_REL = 1e-4, 1e-6
+SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL = 1e-3, 1e-5
+SWEEP_TURNS = ("torch", "cuda", "cuda", "torch")
+RECORDS["sweep grad"] = {"sweep_scan_grad_kernel": 1}
+# tests/test_torch_grad.py's sweep loss at its scene: a 16^3 smoke cloud
+# (seed 5), an 8^3 light volume and a weight of the 12^2 image, seeded.
+SMALL_TF = (np.array([0.0, 0.25, 0.6, 1.0], np.float32),
+            np.array([[0.1, 0.2, 0.3, 0.05], [0.4, 0.5, 0.3, 0.3],
+                      [0.9, 0.7, 0.5, 0.6], [1.0, 1.0, 1.0, 0.9]],
+                     np.float32))
+
+
+@contextlib.contextmanager
+def swept_by(method: str):
+    """Every sweep render of the pipeline through ``method`` while inside:
+    the plain loop ("torch"), timed beside the kernels'."""
+    saved = sweep_render.sweep_render
+    sweep_render.sweep_render = functools.partial(saved, method=method)
+    try:
+        yield
+    finally:
+        sweep_render.sweep_render = saved
+
+
+def sweep_bound(vol_p, light_p, n_v: int, n_u: int, n_planes: int,
+                tf_points: int, backward: bool = False) -> dict:
+    """The least time of one scan on the card, the larger of: the bytes it
+    must move (the volume and the light volume, the rays' coordinates and
+    path lengths, 48 B of constants a plane, the transfer function and the
+    (V, U, 4) image; the backward also reads the image and its cotangent
+    and writes the volumes' and the transfer function's gradients) at
+    HBM_BYTES_PER_S, and its operations (every ray at every plane: the
+    scan has no early exit; ``sweep_scan.ops_per_sample`` each) at
+    FP32_FLOP_PER_S."""
+    rays = n_v * n_u
+    vols = (vol_p.numel() + light_p.numel()) * 4
+    nbytes = (vols + 4 * (n_u + n_v + rays) + 48 * n_planes
+              + 20 * tf_points + 16 * rays)
+    if backward:
+        nbytes += 16 * rays + vols + 20 * tf_points
+    ops = rays * n_planes * ss.ops_per_sample(tf_points, backward)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return {"bytes": nbytes, "operations": ops, "samples": rays * n_planes,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def sweep_close(got, want, what: str, rtol: float = SWEEP_RTOL,
+                atol_rel: float = SWEEP_ATOL_REL) -> dict:
+    """Assert a kernel's result within rtol and atol_rel x the largest
+    finite |plain| of the plain version's, NaN where it has NaN; prints
+    and returns the error and each form's NaN count."""
+    finite = torch.isfinite(want)
+    scale = float(want[finite].abs().max()) if bool(finite.any()) else 0.0
+    both = finite & torch.isfinite(got)
+    err = float((got - want)[both].abs().max()) if bool(both.any()) else 0.0
+    nans = (int(torch.isnan(got).sum()), int(torch.isnan(want).sum()))
+    print(f"{what}: max_abs_err {err:.3e} (max |plain| {scale:.3e}; held to "
+          f"rtol {rtol:g}, atol {atol_rel:g} of that); NaN kernel / plain "
+          f"{nans[0]} / {nans[1]}")
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol_rel * scale,
+                               equal_nan=True,
+                               msg=lambda m: f"{what}: {m}")
+    return {"max_abs_err": err, "max_abs_plain": scale,
+            "nan_kernel": nans[0], "nan_plain": nans[1]}
+
+
+def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
+                timed: bool = False, columns: slice | None = None) -> dict:
+    """The forward kernel against the plain loop on one render's scans,
+    one launch per sweep (``columns``: on that slice of the base grid's
+    columns, as a rank scans them, and equal bit for bit to the whole
+    scan's columns), and on the image where the whole render is scanned
+    (``sweep_render`` by each method, whose NaN pixels it counts). With
+    ``timed``: the kernel's device time (``torch.profiler``), the call's
+    and the plain loop's (CUDA events) and the bound, per render."""
+    axis, vol_p, light_p, scans = sweep_render.sweep_plan(
+        volume, light_volume, camera, rc)
+    amb = rc.ambient
+
+    def scan(method, sched, u, v):
+        return sweep_render._scan_planes(vol_p, light_p, tf, sched, u, v,
+                                         amb, method)
+
+    res = {"sweeps": len(scans), "rays": [], "planes": []}
+    parts = []
+    for i, (sched, u, v) in enumerate(scans):
+        whole = None
+        if columns is not None:
+            whole = scan("cuda", sched, u, v)[:, columns]
+            u = u[columns]
+        parts.append((sched, u, v))
+        before = SWEEP_FWD.launches
+        got = scan("cuda", sched, u, v)
+        torch.cuda.synchronize()
+        if SWEEP_FWD.launches - before != 1:
+            raise AssertionError(f"{what}: {SWEEP_FWD.launches - before} "
+                                 "forward launches for one scan")
+        want = scan("torch", sched, u, v)
+        res[f"sweep {i}"] = sweep_close(
+            got, want, f"sweep kernel vs plain loop, {what}, sweep {i} "
+            f"({v.shape[0]}x{u.shape[0]} rays x {sched.za.shape[0]} planes)")
+        res["rays"].append(v.shape[0] * u.shape[0])
+        res["planes"].append(sched.za.shape[0])
+        if whole is not None:
+            same = bool(_same_bits(got.reshape(-1), whole.reshape(-1)).all())
+            print(f"{what}, sweep {i}: the slice's scan equals the whole "
+                  f"scan's columns bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"{what}: a column slice scans other "
+                                     "values than the whole scan")
+    res["max_abs_err"] = max(res[f"sweep {i}"]["max_abs_err"]
+                             for i in range(len(scans)))
+    if columns is None:
+        before = SWEEP_FWD.launches
+        img = sweep_render.sweep_render(volume, tf, light_volume, camera, rc,
+                                        method="cuda")
+        torch.cuda.synchronize()
+        res["launches"] = SWEEP_FWD.launches - before
+        if res["launches"] != len(scans):
+            raise AssertionError(f"{what}: {res['launches']} forward "
+                                 f"launches for {len(scans)} sweeps")
+        want = sweep_render.sweep_render(volume, tf, light_volume, camera,
+                                         rc, method="torch")
+        res["image"] = sweep_close(
+            img, want, f"sweep_render kernel vs plain loop, {what}, image "
+            f"{tuple(img.shape)}")
+        res["nan_pixels"] = {m: int(torch.isnan(im[..., :3]).any(-1).sum())
+                             for m, im in (("cuda", img), ("torch", want))}
+    if not timed:
+        return res
+    key = f"sweep x{len(parts)}"
+    RECORDS[key] = {"sweep_scan_kernel": len(parts)}
+
+    def render(method):
+        return [scan(method, *p) for p in parts]
+
+    dev_ms = device_ms(key, lambda: render("cuda"), reps=5)
+    if dev_ms == 0.0:
+        raise AssertionError("torch.profiler showed no device time")
+    call = cuda_ms(lambda: render("cuda"), reps=5)
+    plain = cuda_ms(lambda: render("torch"), reps=1, warmup=0)
+    bounds = [sweep_bound(vol_p, light_p, v.shape[0], u.shape[0],
+                          sched.za.shape[0], tf.positions.shape[0])
+              for sched, u, v in parts]
+    bound = {"bytes": sum(b["bytes"] for b in bounds),
+             "operations": sum(b["operations"] for b in bounds),
+             "samples": sum(b["samples"] for b in bounds),
+             "bound_ms": sum(b["bound_ms"] for b in bounds),
+             "bound_by": bounds[0]["bound_by"]}
+    print(f"sweep {what}: kernel device time {dev_ms:.4f} ms, call "
+          f"{call:.3f} ms, plain loop {plain:.3f} ms; bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+          f"{bound['samples']} samples, {bound['bytes']} B), "
+          f"{bound['bound_ms'] / dev_ms:.1%} of it ({tag})")
+    res.update({"ms": dev_ms, "call_ms": call, "plain_ms": plain, **bound,
+                "share_of_bound": bound["bound_ms"] / dev_ms})
+    return res
+
+
+def sweep_grads(volume, tf, light_volume, camera, rc, weight,
+                method: str) -> tuple:
+    """Gradients of sum(image x ``weight``) (float64 sum) through
+    ``sweep_render`` by ``method``, with respect to the volume data, the
+    light volume and the TF's positions and colours."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (
+        volume.data, light_volume, tf.positions, tf.colors)]
+    img = sweep_render.sweep_render(
+        dataclasses.replace(volume, data=leaves[0]),
+        TransferFunction(positions=leaves[2], colors=leaves[3], lut=tf.lut),
+        leaves[1], camera, rc, method=method)
+    return torch.autograd.grad((img.double() * weight).sum(), leaves)
+
+
+GRAD_NAMES = ("volume", "light volume", "tf positions", "tf colours")
+
+
+def check_sweep_grad(what: str, volume, tf, light_volume, camera, rc,
+                     weight, tag, *, timed: bool = False) -> dict:
+    """The backward kernel (through ``SweepScan``) against autograd through
+    the plain loop, for the loss sum(image x ``weight``): each gradient
+    within SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL x its largest component,
+    one backward launch per sweep. With ``timed``: the kernel alone
+    against its plain version (``_scan_planes_grad_torch``) on the image's
+    own cotangent of the intermediate, its device time beside the bound,
+    and both whole gradients timed."""
+    args = (volume, tf, light_volume, camera, rc, weight)
+    before = SWEEP_BWD.launches
+    got = sweep_grads(*args, "cuda")
+    torch.cuda.synchronize()
+    launches = SWEEP_BWD.launches - before
+    want = sweep_grads(*args, "torch")
+    if SWEEP_BWD.launches - before != launches or launches != 1:
+        raise AssertionError(f"{what}: {launches} backward launches")
+    res = {name: sweep_close(g, w, f"sweep backward (SweepScan) vs autograd "
+                             f"through the plain loop, {what}: {name}",
+                             SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL)
+           for name, g, w in zip(GRAD_NAMES, got, want)}
+    res["max_abs_err"] = max(res[n]["max_abs_err"] for n in GRAD_NAMES)
+    if not timed:
+        return res
+    axis, vol_p, light_p, scans = sweep_render.sweep_plan(
+        volume, light_volume, camera, rc)
+    sched, u, v = scans[0]
+    amb = rc.ambient
+    c = sweep_render.scan_constants(vol_p, light_p, sched, u, v)
+    inter = sweep_render._scan_planes(vol_p, light_p, tf, sched, u, v, amb,
+                                      "cuda").requires_grad_(True)
+    img = sweep_render._warp(inter, sched, axis, rc.width, rc.height)
+    g_inter, = torch.autograd.grad((img.double() * weight).sum(), inter)
+    inter = inter.detach()
+
+    def kernel():
+        return ss.sweep_scan_backward(vol_p, light_p, tf.positions,
+                                      tf.colors, c, u, v, amb, inter,
+                                      g_inter)
+
+    def plain():
+        return sweep_render._scan_planes_grad_torch(
+            vol_p, light_p, tf, c, u, v, amb, inter, g_inter)
+
+    bare = {name: sweep_close(g, w, f"backward kernel vs "
+                              f"_scan_planes_grad_torch, {what}: {name}",
+                              SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL)
+            for name, g, w in zip(GRAD_NAMES, kernel(), plain())}
+    dev_ms = device_ms("sweep grad", kernel, reps=5)
+    if dev_ms == 0.0:
+        raise AssertionError("torch.profiler showed no device time")
+    call = cuda_ms(kernel, reps=5)
+    plain_ms = cuda_ms(plain, reps=1, warmup=0)
+    whole = {m: cuda_ms(lambda m=m: sweep_grads(*args, m), reps=1)
+             for m in ("cuda", "torch")}
+    bound = sweep_bound(vol_p, light_p, v.shape[0], u.shape[0],
+                        sched.za.shape[0], tf.positions.shape[0],
+                        backward=True)
+    print(f"sweep backward, {what}: kernel device time {dev_ms:.4f} ms, "
+          f"call {call:.3f} ms, plain version {plain_ms:.3f} ms; bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+          f"{bound['samples']} samples, {bound['bytes']} B), "
+          f"{bound['bound_ms'] / dev_ms:.1%} of it; the whole gradient "
+          f"(render and backward) through the kernels {whole['cuda']:.3f} "
+          f"ms, through autograd of the plain loop {whole['torch']:.3f} ms "
+          f"({tag})")
+    res.update({"bare_vs_plain": bare, "ms": dev_ms, "call_ms": call,
+                "plain_ms": plain_ms, "whole_gradient_ms": whole, **bound,
+                "share_of_bound": bound["bound_ms"] / dev_ms})
+    return res
+
+
+def small_grad_scene(dev):
+    """tests/test_torch_grad.py's sweep loss on ``dev``: (volume, TF, light
+    volume, camera, render config, weight)."""
+    volume = Volume.from_data(synthetic.smoke_cloud(16, seed=5), device=dev)
+    tf = TransferFunction.from_points(*SMALL_TF, device=dev)
+    lv = torch.from_numpy(np.random.default_rng(2).uniform(
+        0.0, 2.0, (8, 8, 8, 3)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.5, 1.5, (12, 12, 4))).to(dev)
+    return (volume, tf, lv, Camera.create(eye=(0.45, 0.6, -1.5), device=dev),
+            RenderConfig(width=12, height=12, sampling_rate=1.5), w)
+
+
+def sweep_kernel_phase(scene, config, state, dev, tag) -> dict:
+    """The sweep kernels at the default frame: the forward against the
+    plain loop on the frame, the eye-inside camera (two sweeps), a rank's
+    half of the columns and a strided fifth of them, timed beside the
+    bound on the frame and the eye inside; ``entry``'s forward, counted;
+    the backward against autograd through the plain loop on the frame's
+    image loss (timed, and the kernel alone against its plain version) and
+    on tests/test_torch_grad.py's sweep loss; then render_state, the frame
+    and a packed interactive frame in turns through the kernels and the
+    plain loop, and the host waits of one render in each form."""
+    t0 = time.perf_counter()
+    rc, lv = config.render, state.light_volume_accum
+    vol, tf, camera = scene.volume, scene.tf, scene.camera
+    res = {}
+    res["default frame"] = check_sweep(
+        "default frame", vol, tf, lv, camera, rc, tag, timed=True)
+    inside = Camera.create(eye=(0.5, 0.5, 0.45), center=(0.5, 0.5, 2.0))
+    res["eye inside"] = check_sweep(
+        f"eye inside ({INSIDE_SIDE}^2 at sampling rate 4)", vol, tf, lv,
+        inside, RenderConfig(width=INSIDE_SIDE, height=INSIDE_SIDE,
+                             sampling_rate=4.0), tag, timed=True)
+    n_u = sweep_render._round_up(int(rc.width * rc.inter_scale), 128)
+    res["rank 1 of 2"] = check_sweep(
+        "rank 1 of 2's columns", vol, tf, lv, camera, rc, tag,
+        columns=slice(n_u // 2, n_u))
+    res["strided columns"] = check_sweep(
+        "every fifth column (a strided slice, a ragged last block)", vol,
+        tf, lv, camera, rc, tag, columns=slice(1, None, 5))
+
+    # entry.py's forward step, counted.
+    forward, (e_scene, e_state) = port_entry.entry()
+    reset_counts()
+    e_img = forward(e_scene, e_state)
+    torch.cuda.synchronize()
+    e_launches = read_counts()
+    splats = (e_launches["splat_product_direct"]
+              + e_launches["splat_product_tiled"])
+    print(f"entry.entry's forward (a full trace + splat + sweep, "
+          f"{tuple(e_img.shape)}): launches {e_launches} ({tag})")
+    if (e_launches["trace_woodcock_cuda"], splats,
+            e_launches["sweep_scan_forward"]) != (1, 1, 1) or not bool(
+            torch.isfinite(e_img).all()) or e_img.device != dev:
+        raise AssertionError("entry's forward did not run each kernel once "
+                             "on the card")
+
+    # The backward.
+    weight = torch.tensor((*GRAD_CHANNELS, 0.0), dtype=torch.float64,
+                          device=dev)
+    res["grad default frame"] = check_sweep_grad(
+        "the default frame's image loss", vol, tf, lv, camera, rc, weight,
+        tag, timed=True)
+    res["grad small"] = check_sweep_grad(
+        "tests/test_torch_grad.py's sweep loss", *small_grad_scene(dev), tag)
+
+    # End to end, the kernels against the plain loop, in turns; the host
+    # waits of one render in each form.
+    edited = edit_tf(scene)
+    grid = step.build_importance_grid(edited, config)
+    budget = step.recompute_budget(config, state.light_samples.n)
+    packed_state = packed.pack_state(state)
+    turns = {}
+    for name, fn in (
+            ("render_state", lambda: step.render_state(scene, state,
+                                                      config)),
+            ("frame (full_trace_step + render_state)",
+             lambda: run_frame(scene, config)),
+            ("interactive_frame", lambda: packed.interactive_frame(
+                edited, packed_state, camera, grid, config, budget,
+                fresh_round=True))):
+        runs = []
+        for m in SWEEP_TURNS:
+            with swept_by(m):
+                runs.append((m, cuda_ms(fn, reps=2)))
+        turns[name] = runs
+        print(f"{name} in turns: " + ", ".join(
+            f"{m} {t:.3f} ms" for m, t in runs) + f" ({tag})")
+    waits = {}
+    for m in ("torch", "cuda"):
+        with swept_by(m):
+            waits[m] = dict(host_waits(
+                lambda: step.render_state(scene, state, config)))
+        print(f"host waits of one render_state, {m}: "
+              f"{sum(waits[m].values())} ("
+              + ", ".join(f"{w} x{c}" for w, c in waits[m].items())
+              + f") ({tag})")
+    if sum(waits["cuda"].values()) > sum(waits["torch"].values()):
+        raise AssertionError("the sweep kernels add host waits")
+    print(f"the sweep kernel phase took {time.perf_counter() - t0:.1f} s")
+    return {"lists": res, "entry_launches": e_launches,
+            "end_to_end_in_turns": turns, "host_waits": waits}
+
+
+def sweep_rows(phase: dict, by_path: dict, grad_launches: int,
+               extra: dict) -> list:
+    """The ``kernels`` rows of the sweep kernels: the forward's numbers at
+    the default frame and its launches on every driven path (the default
+    frame's at the top), the backward's on the default frame's image loss
+    and its launches from one ``trajectory_gradients``."""
+    lists = {**phase["lists"], **extra}
+    d, g = lists["default frame"], lists["grad default frame"]
+    common = {"route": "cuda", "source": "cpm_tpu_torch/csrc/sweep_scan.cu",
+              "replaces": "cpm_tpu/ops/sweep_render.py:203",
+              "held_against_plain": True, "library_ms": None,
+              "library_note": "no library call computes it"}
+    forward = {
+        "name": "sweep_scan_forward", **common,
+        "replaces_note": "no Pallas kernel: the lax.scan of _scan_planes "
+                         "(:203-271) with its hat-matrix products",
+        "caller": "render_state (default frame), and every sweep render",
+        "launches": by_path["full_trace_step + render_state (default "
+                            "frame)"],
+        "launches_by_path": by_path,
+        "max_abs_err": d["max_abs_err"], "ms": d["ms"],
+        "call_ms": d["call_ms"], "plain_ms": d["plain_ms"],
+        "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "share_of_bound": d["share_of_bound"],
+        "lists": {k: v for k, v in lists.items()
+                  if not k.startswith("grad ")},
+        "entry_launches": phase["entry_launches"],
+        "end_to_end_in_turns": phase["end_to_end_in_turns"],
+        "host_waits_per_render": phase["host_waits"]}
+    backward = {
+        "name": "sweep_scan_backward", **common,
+        "replaces_note": "no TPU kernel: the reference differentiates the "
+                         "lax.scan of _scan_planes (:203-271) with jax.grad",
+        "caller": "score_grad.trajectory_gradients (default frame), and "
+                  "every gradient through the sweep",
+        "launches": grad_launches,
+        "max_abs_err": g["max_abs_err"],
+        "max_abs_err_of": "the four gradients of the default frame's image "
+                          "loss against autograd through the plain loop",
+        "ms": g["ms"], "call_ms": g["call_ms"], "plain_ms": g["plain_ms"],
+        "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+        "share_of_bound": g["share_of_bound"],
+        "lists": {k: v for k, v in lists.items() if k.startswith("grad ")}}
+    return [forward, backward]
+
 
 
 # --- the correlated update ------------------------------------------------
@@ -1279,7 +1725,8 @@ def correlated_default(scene, config, state, dev, tag) -> dict:
     if not 0 < flagged or batches != want_batches:
         raise AssertionError(f"the drain took {batches} batches, not "
                              f"ceil({flagged} / {budget}) = {want_batches}")
-    expect_launches("correlated drain", launches, [design] * batches)
+    expect_launches("correlated drain", launches, [design] * batches,
+                    sweeps=1)
     if drained.n_remaining != 0 or bool(drained.retraced.any()):
         raise AssertionError("the drain left flagged photons or its mask")
     if drained.recompute_phase != state.recompute_phase + batches:
@@ -1801,6 +2248,9 @@ def guided_config3(dev, tag) -> dict:
     print(f"config 3 guided frame (first run): {ms:.1f} ms ({tag})")
     expect_frame("config 3 guided frame", guided, state, img, dev,
                  frame_launches)
+    sweep_check = check_sweep("config 3 guided frame", scene.volume,
+                              scene.tf, state.light_volume_accum,
+                              scene.camera, guided.render, tag, timed=True)
     uniform = step.init_state(scene, config).light_samples
     if torch.equal(state.light_samples.origins, uniform.origins):
         raise AssertionError("guided emission did not move the samples")
@@ -1897,7 +2347,8 @@ def guided_config3(dev, tag) -> dict:
     return {"launches": frame_launches, "on_frame": on_frame,
             "stage_ms": stage_ms, "variance_uniform": var_u,
             "variance_guided": var_g, "bias": bias, "tick_ms": tick_ms,
-            "debug_image_ms": image_ms, "trace_check": trace_check}
+            "debug_image_ms": image_ms, "trace_check": trace_check,
+            "sweep_check": sweep_check}
 
 
 # Every other light type and the Hilbert order at the default scene.
@@ -2010,8 +2461,9 @@ def float16_frames(dev, tag) -> dict:
     """Float16 photon storage. (1) The default frame's trace in float32 and
     in float16 under one key: the float16 fields are the float32 ones cast
     (``expect_cast``); at 4 interactions some stored powers exceed F16_MAX
-    and become +inf, in the reference as here. (2) The default frame at 2
-    interactions, where every stored power fits (a deposit divides the
+    and become +inf, in the reference as here; the sweep kernel on that
+    light volume against the plain loop, NaN equal. (2) The default frame
+    at 2 interactions, where every stored power fits (a deposit divides the
     power by an opacity of at least 0.01: at most 1.2452 / 2 x 100^2 =
     6,226), counted: the cast again, the light volume within
     F16_FRAME_REL_L1 of float32's, both designs against the plain version
@@ -2046,7 +2498,23 @@ def float16_frames(dev, tag) -> dict:
           f"float16 ({tag})")
     if over != inf:
         raise AssertionError("the overflowing powers are not the +inf ones")
-    del p32, p16
+    # Its light volume holds +inf, and 0 x inf is NaN: the plain loop's
+    # matrix products meet every texel of a plane's slab with every ray,
+    # and the kernel gives NaN where they do. Held with NaN equal.
+    lv_inf = splat.splat_all(p16, step.light_volume_shape(config),
+                             method="cuda")
+    n_inf = int(torch.isinf(lv_inf).sum())
+    inf_check = check_sweep(
+        f"float16 light volume at 4 interactions ({n_inf} infinite texels)",
+        scene.volume, scene.tf, lv_inf, scene.camera, config.render, tag)
+    inf_nan = inf_check["nan_pixels"]
+    print(f"float16 light volume at 4 interactions: {n_inf} infinite "
+          f"texels; NaN pixels of the {config.render.width}^2 image: kernel "
+          f"{inf_nan['cuda']}, plain loop {inf_nan['torch']} ({tag})")
+    if inf_nan["cuda"] != inf_nan["torch"]:
+        raise AssertionError("the kernel's NaN pixels are not the plain "
+                             "loop's")
+    del p32, p16, lv_inf
 
     # 2. The counted float16 frame at 2 interactions.
     scene, config = build_frame(max_interactions=2)
@@ -2059,6 +2527,9 @@ def float16_frames(dev, tag) -> dict:
     print(f"float16 frame, 2 interactions (first run): {ms:.1f} ms ({tag})")
     expect_frame("float16 frame, 2 interactions", half, s16, img, dev,
                  launches)
+    sweep_check = check_sweep("float16 frame, 2 interactions", scene.volume,
+                              scene.tf, s16.light_volume_accum, scene.camera,
+                              half.render, tag)
     pos_err = expect_cast(s32.photons, s16.photons,
                           "default frame, 2 interactions")
     biggest = float(s32.photons.powers[used_slots(s32.photons)].max())
@@ -2160,7 +2631,9 @@ def float16_frames(dev, tag) -> dict:
             "in_turns": turns, "light_volume_rel_l1": lv_err,
             "drain_launches": drain_launches, "batches": batches,
             "on_delta": on_delta, "drain_ms": drain_ms,
-            "overflow_at_4_interactions": over}
+            "overflow_at_4_interactions": over, "sweep_check": sweep_check,
+            "sweep_nan_pixels_at_4_interactions": inf_nan,
+            "sweep_check_at_4_interactions": inf_check}
 
 
 def no_single_scattering_frame(dev, tag) -> dict:
@@ -2687,6 +3160,10 @@ def run_fit(tag) -> dict:
         raise AssertionError(f"fit_tf_torch missed theta by {err:.1%}")
     if launches["splat_product_grad_cuda"] < fit.N_STEPS:
         raise AssertionError("the fit did not run the backward kernel")
+    if min(launches["sweep_scan_forward"],
+           launches["sweep_scan_backward"]) < fit.N_STEPS:
+        raise AssertionError("the fit did not render through the sweep "
+                             "kernels, forward and backward")
     return {"steps": fit.N_STEPS, "seconds": s, "rel_err": err,
             "launches": launches}
 
@@ -2847,6 +3324,10 @@ def gradients_default(delta_list, dev, tag) -> dict:
           + ", ".join(f"{k} {a:.6e} / {b:.6e}" for k, (a, b) in fd.items())
           + f"; one gradient launched {lin_launches}, peak "
           f"{lin_peak / 2**30:.2f} GiB ({tag})")
+    if (lin_launches["sweep_scan_forward"], lin_launches[
+            "sweep_scan_backward"]) != (1, 1):
+        raise AssertionError("the linear loss's gradient did not render "
+                             "through the sweep kernels once each way")
     del grads, xs
 
     lin = deposit_loss(scene, config, dim, photons)
@@ -2875,6 +3356,9 @@ def gradients_default(delta_list, dev, tag) -> dict:
     if full_launches["splat_product_grad_cuda"] < 1 or full_launches[
             "splat_product_direct"] < 1:
         raise AssertionError("the gradient did not run both splat kernels")
+    if min(full_launches["sweep_scan_forward"],
+           full_launches["sweep_scan_backward"]) < 1:
+        raise AssertionError("the gradient did not run both sweep kernels")
     del g
 
     # 4. The image MSE against a target after the TF edit: the full
@@ -3071,7 +3555,8 @@ def world_of_one(scene, config, state0, single, tag) -> dict:
             slots = new.photons.positions.shape[0] * new.photons.n
             expect_launches(f"world of 1 (nccl), {m}", launches, [
                 sp.choose_design(slots, new.photons.radius_rel,
-                                 step.light_volume_shape(cfg))])
+                                 step.light_volume_shape(cfg))],
+                sweeps=int(m == "sweep"))
             errs = expect_sharded(
                 f"world of 1 (nccl), {m}",
                 [{"photons": {f: getattr(new.photons, f).cpu()
@@ -3216,7 +3701,8 @@ def gloo_world(what: str, world: int, n_hosts: int, methods: tuple,
                                           [r[m] for r in ranks], *single[m])
         for r in ranks:
             expect_launches(f"{what}, {m}, rank {r['rank']}",
-                            r[m]["launches"], [r["design"]])
+                            r[m]["launches"], [r["design"]],
+                            sweeps=int(m == "sweep"))
     print(f"{what}: {world} processes in {wall:.1f} s, ranks on "
           f"{sorted({r['device'] for r in ranks})} ({tag})")
     return res
@@ -3283,7 +3769,8 @@ def demo_config1(dev, tag) -> dict:
     dim = tuple(lv.shape[:3])
     slots = photons.positions.shape[0] * photons.n
     design = sp.choose_design(slots, photons.radius_rel, dim)
-    expect_launches("the config 1 demo", launches, [design, design])
+    expect_launches("the config 1 demo", launches, [design, design],
+                    sweeps=2)
     deposited = int((photons.positions[..., 0] < 1e30).sum())
     alpha = float(img[..., 3].max())
     print(f"config 1 demo on the card: two runs in {wall:.2f} s, {deposited} "
@@ -3435,12 +3922,12 @@ def main() -> None:
     print(sys.version.split()[0], "torch", torch.__version__, "cuda",
           torch.version.cuda)
 
-    # Both libraries at once, one nvcc each; the compiler's resource report
+    # Every library at once, one nvcc each; the compiler's resource report
     # (registers, spills) of each.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         builds = [(mod.SOURCE.name, pool.submit(mod.build))
-                  for mod in (sp, wt)]
+                  for mod in (sp, wt, ss)]
         for name, fut in builds:
             _, log = fut.result()
             print(f"{name} (-Xptxas -v):\n{log.strip()}")
@@ -3478,6 +3965,9 @@ def main() -> None:
     # --- the trace kernel against its plain version, timed, and the host
     # waits of a trace and of a packed interactive frame ---
     traced = trace_kernel_phase(scene, config, state, dev, tag)
+
+    # --- the sweep kernels against the plain loop, timed, counted ---
+    swept = sweep_kernel_phase(scene, config, state, dev, tag)
 
     # --- the correlated update at the default frame, counted ---
     correlated = correlated_default(scene, config, state, dev, tag)
@@ -3666,6 +4156,38 @@ def main() -> None:
          "config 3 guided frame": guided["trace_check"]}))
     rows[-1]["config 4 advance_time in turns"] = playback["step_in_turns"]
     rows[-1]["config 1 demo trace"] = demo["trace_stats"]
+    sweeps = "sweep_scan_forward"
+    by_path = {
+        "full_trace_step + render_state (default frame)": launches[sweeps],
+        "interactive_frame": traced["interactive_frame"]["launches"][sweeps],
+        "correlated drain + render_state": correlated["launches"][sweeps],
+        "eye inside (render)": swept["lists"]["eye inside"]["launches"],
+        "entry.entry forward": swept["entry_launches"][sweeps],
+        "float16 frame": half["launches"][sweeps],
+        "config 3 guided frame": guided["launches"][sweeps],
+        "world of 1 (nccl), sharded_full_step": multi["world1_nccl"][
+            "sweep"]["launches"][sweeps],
+        "gloo ranks of 2, sharded_full_step, per rank": [
+            r[sweeps] for r in multi["world2"]["launches_per_rank"]["sweep"]],
+        "2 hosts x 2 chips, multihost_full_step, per rank": [
+            r[sweeps] for r in multi["world4"]["launches_per_rank"]["sweep"]],
+        "config 1 demo (two runs)": demo["launches"][sweeps],
+        "linear image loss gradient": grads["linear_launches"][sweeps],
+        "trajectory_gradients": grads["launches"][sweeps],
+        "fit_tf_torch (12 steps)": grads["fit"]["launches"][sweeps]}
+    rows.extend(sweep_rows(
+        swept, by_path, grads["launches"]["sweep_scan_backward"],
+        {"config 3 guided frame": guided["sweep_check"],
+         "float16 frame": half["sweep_check"],
+         "float16 light volume at 4 interactions (+inf texels)": half[
+             "sweep_check_at_4_interactions"],
+         "float16 NaN pixels at 4 interactions": half[
+             "sweep_nan_pixels_at_4_interactions"],
+         "grad launches by path": {
+             "linear image loss gradient": grads["linear_launches"][
+                 "sweep_scan_backward"],
+             "fit_tf_torch (12 steps)": grads["fit"]["launches"][
+                 "sweep_scan_backward"]}}))
     for row in rows:
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']} was launched by no driven "

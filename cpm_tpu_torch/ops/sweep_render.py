@@ -12,11 +12,20 @@ float32 (TF32 off); the reference's ``BF16_BF16_F32_X3`` passes are
 likewise fp32-accurate. An eye inside the volume's slab range renders two
 sweeps, one per marching sign, and sums them. :func:`march_zplanes_oracle`
 is the sweep's exact oracle: a per-ray march over the same planes.
+
+On the card the plane scan is two kernels (``csrc/sweep_scan.cu``, behind
+``kernels/sweep_scan.py``): the forward marches each intermediate ray over
+every plane in one launch, and the backward yields the gradients that
+autograd takes through the plain loop. Both forms read
+:func:`scan_constants`; ``method="auto"`` takes the kernels for CUDA
+tensors and the plain loop (:func:`_scan_planes_torch`, whose backward's
+plain version is :func:`_scan_planes_grad_torch`) for CPU tensors.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,6 +35,7 @@ from cpm_tpu_torch.core.camera import Camera
 from cpm_tpu_torch.core.config import RenderConfig
 from cpm_tpu_torch.core.types import (TransferFunction, Volume,
                                       full_fp32_matmul)
+from cpm_tpu_torch.kernels import sweep_scan
 from cpm_tpu_torch.ops.sampling import (sample_volume_trilinear,
                                         sample_volume_trilinear_vec)
 
@@ -134,39 +144,125 @@ def _plane_schedule(camera: Camera, axis: int, sign: int, n_planes: int,
                          v_hi=v_hi, d=d, safe_da=safe_da, pix_ok=pix_ok)
 
 
-def _slab_lerp(vol: Tensor, za: Tensor):
-    """Per-plane slab pair and lerp weight along the marching axis:
-    (slab0 (S, ...), slab1 (S, ...), fz (S,))."""
-    na = vol.shape[0]
+def _slab_indices(na: int, za: Tensor):
+    """Per-plane slab pair and lerp weight along the marching axis of a
+    volume of ``na`` slabs: (k0 (S,) int64, k1 (S,) int64, fz (S,))."""
     zf = torch.clamp(za * na - 0.5, 0.0, na - 1.0)
     k0 = torch.floor(zf)
     fz = zf - k0
     k0 = k0.to(torch.int64)
     k1 = torch.clamp(k0 + 1, max=na - 1)
-    return vol[k0], vol[k1], fz
+    return k0, k1, fz
 
 
-def _scan_planes(vol_p: Tensor, light_p: Tensor, tf: TransferFunction,
-                 sched: SweepSchedule, u: Tensor, v: Tensor,
-                 ambient: float) -> Tensor:
-    """Front-to-back composite over all planes for base-grid columns ``u``
-    and rows ``v`` -> (len(v), len(u), 4) intermediate image."""
-    nc, nb = vol_p.shape[1:]
-    nc2, nb2 = light_p.shape[1:3]
+class ScanConstants(NamedTuple):
+    """What both forms of the plane scan read: the slab pairs and lerp
+    weights of the volume (``k0``, ``k1``, ``fz``) and of the light volume
+    (``lk0``, ``lk1``, ``lfz``), the planes' validity as float32 and their
+    base-grid scales, the per-ray path length of one plane step ``dl``
+    (V, U), the eye's in-plane coordinates (0-dim tensors), the extinction
+    scale ``sbi``, and the non-finite texels of each plane's lerped slab
+    (``nonfinite`` (S,) of the volume, ``lnonfinite`` (S, 3) of the light
+    volume's channels), which only the forward kernel reads. All tensors
+    stay on the device."""
+
+    k0: Tensor
+    k1: Tensor
+    fz: Tensor
+    lk0: Tensor
+    lk1: Tensor
+    lfz: Tensor
+    valid: Tensor  # (S,) float32
+    w_planes: Tensor  # (S,)
+    dl: Tensor  # (V, U)
+    o_b: Tensor
+    o_c: Tensor
+    sbi: float
+    nonfinite: Tensor  # (S,) int32
+    lnonfinite: Tensor  # (S, 3) int32
+
+
+def _plane_nonfinite(vol_p: Tensor, k0: Tensor, k1: Tensor) -> Tensor:
+    """Non-finite texels of each plane's lerped slab, (S,) or (S, C)
+    int32: those of slab k0 or slab k1, since 0 x inf is NaN. The plain
+    loop samples a plane through products with hat matrices, in which
+    every texel of the slab meets every ray (mostly with weight 0), so
+    one such texel makes every ray's sample NaN but where the ray's own
+    taps hold every one of them; the kernel, which reads only its taps,
+    compares its count with this one."""
+    bad = ~torch.isfinite(vol_p)
+    per = bad.flatten(1, 2).sum(1)
+    # k1 is k0 + 1, or k0 itself at the last slab.
+    both = torch.cat([(bad[:-1] & bad[1:]).flatten(1, 2).sum(1), per[-1:]])
+    return (per[k0] + per[k1] - both[k0]).to(torch.int32)
+
+
+def scan_constants(vol_p: Tensor, light_p: Tensor, sched: SweepSchedule,
+                   u: Tensor, v: Tensor) -> ScanConstants:
+    """The plane scan's constants for base-grid columns ``u`` and rows
+    ``v`` (no host read)."""
     S = sched.za.shape[0]
-    sbi = float(np.float32(constants.SAMPLING_BASE_INTERVAL_RCP))
     o_b, o_c = sched.o_b, sched.o_c
-
     # Path length per plane step, per intermediate ray (constant over k).
     dz = 1.0 / S
     sec = torch.sqrt((u[None, :] - o_b) ** 2 + (v[:, None] - o_c) ** 2
                      + sched.depth0 ** 2) / torch.clamp(sched.depth0,
                                                         min=1e-6)
     dl = dz * sec  # (V, U)
+    k0, k1, fz = _slab_indices(vol_p.shape[0], sched.za)
+    lk0, lk1, lfz = _slab_indices(light_p.shape[0], sched.za)
+    return ScanConstants(
+        k0=k0, k1=k1, fz=fz, lk0=lk0, lk1=lk1, lfz=lfz,
+        valid=sched.valid.to(torch.float32), w_planes=sched.w_planes, dl=dl,
+        o_b=o_b, o_c=o_c,
+        sbi=float(np.float32(constants.SAMPLING_BASE_INTERVAL_RCP)),
+        nonfinite=_plane_nonfinite(vol_p, k0, k1),
+        lnonfinite=_plane_nonfinite(light_p, lk0, lk1))
 
-    s0, s1, fz = _slab_lerp(vol_p, sched.za)
-    l0, l1, fz2 = _slab_lerp(light_p, sched.za)
-    valid = sched.valid.to(torch.float32)
+
+def _scan_method(method: str, device: torch.device) -> str:
+    """Resolve the plane scan's backend: "auto" is the kernels for CUDA
+    tensors and the plain loop for any other."""
+    if method == "auto":
+        return "cuda" if device.type == "cuda" else "torch"
+    if method not in ("torch", "cuda"):
+        raise ValueError(f"unknown sweep method {method!r}")
+    if method == "cuda" and device.type != "cuda":
+        raise ValueError(f"the sweep kernels take CUDA tensors; the volume "
+                         f"is on {device}")
+    return method
+
+
+def _scan_planes(vol_p: Tensor, light_p: Tensor, tf: TransferFunction,
+                 sched: SweepSchedule, u: Tensor, v: Tensor,
+                 ambient: float, method: str = "auto") -> Tensor:
+    """Front-to-back composite over all planes for base-grid columns ``u``
+    and rows ``v`` -> (len(v), len(u), 4) intermediate image, by
+    ``method``: "auto" (the kernels of ``csrc/sweep_scan.cu`` for CUDA
+    tensors, differentiable through ``kernels/sweep_scan.SweepScan``; the
+    plain loop for CPU tensors), "torch" (the plain loop) or "cuda"."""
+    method = _scan_method(method, vol_p.device)
+    c = scan_constants(vol_p, light_p, sched, u, v)
+    if method == "cuda":
+        return sweep_scan.sweep_scan(vol_p, light_p, tf.positions,
+                                     tf.colors, c, u, v, ambient)
+    return _scan_planes_torch(vol_p, light_p, tf, c, u, v, ambient)
+
+
+def _scan_planes_torch(vol_p: Tensor, light_p: Tensor, tf: TransferFunction,
+                       c: ScanConstants, u: Tensor, v: Tensor,
+                       ambient: float) -> Tensor:
+    """The plane scan's plain version: one torch step per plane."""
+    nc, nb = vol_p.shape[1:]
+    nc2, nb2 = light_p.shape[1:3]
+    S = c.fz.shape[0]
+    sbi = c.sbi
+    o_b, o_c = c.o_b, c.o_c
+    dl = c.dl
+
+    s0, s1, fz = vol_p[c.k0], vol_p[c.k1], c.fz
+    l0, l1, fz2 = light_p[c.lk0], light_p[c.lk1], c.lfz
+    valid = c.valid
 
     V, U = v.shape[0], u.shape[0]
     rgb = torch.zeros((V, U, 3), dtype=torch.float32, device=u.device)
@@ -174,7 +270,7 @@ def _scan_planes(vol_p: Tensor, light_p: Tensor, tf: TransferFunction,
     for k in range(S):
         slab = (1.0 - fz[k]) * s0[k] + fz[k] * s1[k]  # (Nc, Nb)
         lslab = (1.0 - fz2[k]) * l0[k] + fz2[k] * l1[k]  # (Nc2, Nb2, 3)
-        w_k = sched.w_planes[k]
+        w_k = c.w_planes[k]
         b_k = o_b + w_k * (u - o_b)  # (U,)
         c_k = o_c + w_k * (v - o_c)  # (V,)
         Rb, Rc = _hat_matrix(b_k, nb), _hat_matrix(c_k, nc)
@@ -193,6 +289,119 @@ def _scan_planes(vol_p: Tensor, light_p: Tensor, tf: TransferFunction,
         rgb = rgb + (trans * (1.0 - seg_t))[..., None] * emit
         trans = trans * seg_t
     return torch.cat([rgb, (1.0 - trans)[..., None]], dim=-1)
+
+
+def _tf_sample_grad(p: Tensor, c: Tensor, x: Tensor, g: Tensor):
+    """The adjoint of ``TransferFunction.sample`` at ``x`` for the
+    cotangent ``g`` (..., 4): (dx, d positions (P,), d colours (P, 4)),
+    with autograd's subgradients of the plain form: only the last segment
+    with ``x >= p[s]`` survives the ``where`` chain (the first colour below
+    ``p[0]``), ``clip`` halves the gradient where ``t`` sits on 0 or 1, and
+    the ``clamp(min=1e-12)`` of a segment's width passes it from 1e-12
+    up."""
+    n = p.shape[0]
+    sel = torch.full(x.shape, -1, dtype=torch.int64, device=x.device)
+    for s in range(n - 1):
+        sel = torch.where(x >= p[s], s, sel)
+    gx = torch.zeros_like(x)
+    gp = torch.zeros_like(p)
+    gc = torch.zeros_like(c)
+    gc[0] += torch.where((sel < 0)[..., None], g, 0.0).reshape(-1, 4).sum(0)
+    for s in range(n - 1):
+        gs = torch.where((sel == s)[..., None], g, 0.0)
+        diff = p[s + 1] - p[s]
+        w = torch.clamp(diff, min=1e-12)
+        num = x - p[s]
+        t_raw = num / w
+        t = torch.clamp(t_raw, 0.0, 1.0)
+        dclip = torch.where((t_raw > 0.0) & (t_raw < 1.0), 1.0,
+                            torch.where((t_raw == 0.0) | (t_raw == 1.0),
+                                        0.5, 0.0))
+        gt = gs * t[..., None]
+        gc[s] += (gs - gt).reshape(-1, 4).sum(0)
+        gc[s + 1] += gt.reshape(-1, 4).sum(0)
+        g_raw = (gs * (c[s + 1] - c[s])).sum(-1) * dclip
+        g_num = g_raw / w
+        gx = gx + g_num
+        g_w = (-g_raw * num / (w * w)).sum() * (diff >= 1e-12).to(p.dtype)
+        gp[s] += -g_num.sum() - g_w
+        gp[s + 1] += g_w
+    return gx, gp, gc
+
+
+def _scan_planes_grad_torch(vol_p: Tensor, light_p: Tensor,
+                            tf: TransferFunction, c: ScanConstants,
+                            u: Tensor, v: Tensor, ambient: float,
+                            out: Tensor, grad_out: Tensor):
+    """The plane scan's backward, plain version of the backward kernel:
+    (d vol_p, d light_p, d tf.positions, d tf.colors) for the cotangent
+    ``grad_out`` of the forward's ``out`` (V, U, 4).
+
+    The closed-form recurrence of front-to-back compositing: with C and
+    T_final from ``out``, each ray is marched again with its transmittance
+    T_k and its colour so far C_<=k, and then dL/de_k = g_rgb T_k a_k and
+    dL/dtau_k = g_rgb . (T_k s_k e_k - (C - C_<=k)) + g_a T_final, for the
+    emission e_k, the opacity a_k = 1 - s_k and the segment transmittance
+    s_k = exp(-tau_k). The TF's adjoint and the trilinear weights carry
+    them to the inputs."""
+    nc, nb = vol_p.shape[1:]
+    nc2, nb2 = light_p.shape[1:3]
+    S = c.fz.shape[0]
+    sbi, o_b, o_c, dl = c.sbi, c.o_b, c.o_c, c.dl
+    s0, s1, fz = vol_p[c.k0], vol_p[c.k1], c.fz
+    l0, l1, fz2 = light_p[c.lk0], light_p[c.lk1], c.lfz
+    g_s0, g_s1 = torch.zeros_like(s0), torch.zeros_like(s1)
+    g_l0, g_l1 = torch.zeros_like(l0), torch.zeros_like(l1)
+    p, cols = tf.positions.detach(), tf.colors.detach()
+    g_pos, g_cols = torch.zeros_like(p), torch.zeros_like(cols)
+
+    big_c, t_final = out[..., :3], 1.0 - out[..., 3]
+    g_rgb, g_alpha = grad_out[..., :3], grad_out[..., 3]
+    g_final = g_alpha * t_final
+    V, U = v.shape[0], u.shape[0]
+    rgb = torch.zeros((V, U, 3), dtype=torch.float32, device=u.device)
+    trans = torch.ones((V, U), dtype=torch.float32, device=u.device)
+    for k in range(S):
+        slab = (1.0 - fz[k]) * s0[k] + fz[k] * s1[k]
+        lslab = (1.0 - fz2[k]) * l0[k] + fz2[k] * l1[k]
+        w_k = c.w_planes[k]
+        b_k = o_b + w_k * (u - o_b)
+        c_k = o_c + w_k * (v - o_c)
+        Rb, Rc = _hat_matrix(b_k, nb), _hat_matrix(c_k, nc)
+        Rb2, Rc2 = _hat_matrix(b_k, nb2), _hat_matrix(c_k, nc2)
+        in_b = ((b_k >= 0.0) & (b_k <= 1.0)).to(torch.float32)
+        in_c = ((c_k >= 0.0) & (c_k <= 1.0)).to(torch.float32)
+        mask = (in_c[:, None] * in_b[None, :]) * c.valid[k]
+        field = (Rc @ slab) @ Rb.T
+        light = torch.einsum("vc,cbk,ub->vuk", Rc2, lslab, Rb2)
+        rgba = tf.sample(field).detach()
+        tau = rgba[..., 3] * sbi * dl * mask
+        seg_t = torch.exp(-tau)
+        emit = rgba[..., :3] * (light + ambient)
+        weight = trans * (1.0 - seg_t)
+        rgb = rgb + weight[..., None] * emit
+        g_tau = (g_rgb * ((trans * seg_t)[..., None] * emit
+                          - (big_c - rgb))).sum(-1) + g_final
+        trans = trans * seg_t
+
+        g_emit = g_rgb * weight[..., None]
+        g_rgba = torch.cat([g_emit * (light + ambient),
+                            (g_tau * mask * dl * sbi)[..., None]], dim=-1)
+        g_x, gp, gc = _tf_sample_grad(p, cols, field, g_rgba)
+        g_pos += gp
+        g_cols += gc
+        g_slab = Rc.T @ g_x @ Rb  # (Nc, Nb)
+        g_s0[k] = (1.0 - fz[k]) * g_slab
+        g_s1[k] = fz[k] * g_slab
+        g_lslab = torch.einsum("vc,vuk,ub->cbk", Rc2, g_emit * rgba[..., :3],
+                               Rb2)
+        g_l0[k] = (1.0 - fz2[k]) * g_lslab
+        g_l1[k] = fz2[k] * g_lslab
+    g_vol = torch.zeros_like(vol_p).index_add_(0, c.k0, g_s0).index_add_(
+        0, c.k1, g_s1)
+    g_light = torch.zeros_like(light_p).index_add_(0, c.lk0, g_l0) \
+        .index_add_(0, c.lk1, g_l1)
+    return g_vol, g_light, g_pos, g_cols
 
 
 def _fma(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
@@ -252,14 +461,14 @@ def permute_volumes(vol_data: Tensor, light_data: Tensor, axis: int):
 def _sweep_core(vol_data: Tensor, tf: TransferFunction, light_data: Tensor,
                 camera: Camera, *, axis: int, sign: int, n_planes: int,
                 inter_u: int, inter_v: int, width: int, height: int,
-                ambient: float):
+                ambient: float, method: str = "auto"):
     """One sweep: (image (H, W, 4), intermediate (V, U, 4),
-    (u_lo, u_hi, v_lo, v_hi, za))."""
+    (u_lo, u_hi, v_lo, v_hi, za)); ``method`` as :func:`_scan_planes`."""
     full_fp32_matmul()
     vol_p, light_p = permute_volumes(vol_data, light_data, axis)
     sched = _plane_schedule(camera, axis, sign, n_planes, width, height)
     u, v = base_grid(sched, inter_u, inter_v)
-    inter = _scan_planes(vol_p, light_p, tf, sched, u, v, ambient)
+    inter = _scan_planes(vol_p, light_p, tf, sched, u, v, ambient, method)
     img = _warp(inter, sched, axis, width, height)
     return img, inter, (sched.u_lo, sched.u_hi, sched.v_lo, sched.v_hi,
                         sched.za)
@@ -269,36 +478,66 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def sweep_render(volume: Volume, tf: TransferFunction, light_volume: Tensor,
-                 camera: Camera, config: RenderConfig,
-                 return_intermediate: bool = False):
-    """Render an (H, W, 4) RGBA image from the (D, H, W, 3) light volume.
-    ``config.inter_scale`` sets the intermediate-image oversampling vs the
-    screen (rounded up to a multiple of 128)."""
+class SweepPlan(NamedTuple):
+    """The plane scans of one :func:`sweep_render`: the marching axis, the
+    volume and light volume permuted to it, and (schedule, u, v) of each
+    sweep, two (one per marching sign) for an eye inside the volume's
+    slab range."""
+
+    axis: int
+    vol_p: Tensor
+    light_p: Tensor
+    scans: list
+
+
+def sweep_plan(volume: Volume, light_volume: Tensor, camera: Camera,
+               config: RenderConfig) -> SweepPlan:
+    """What :func:`sweep_render` scans for ``config``:
+    ``config.sampling_rate`` planes per slab of the marching axis (at
+    least 2) and an intermediate image of ``config.inter_scale`` times the
+    screen, rounded up to a multiple of 128."""
     axis, sign = principal_axis(camera)
     na = volume.data.shape[2 - axis]
     n_planes = max(2, int(na * config.sampling_rate))
     U = _round_up(int(config.width * config.inter_scale), 128)
     V = _round_up(int(config.height * config.inter_scale), 128)
-    kw = dict(n_planes=n_planes, inter_u=U, inter_v=V, width=config.width,
-              height=config.height, ambient=config.ambient)
     eye_a = float(camera.host("eye")[axis])
     z_first = 0.5 / n_planes if sign > 0 else 1.0 - 0.5 / n_planes
-    if (z_first - eye_a) * sign <= 1e-6:
-        # Eye inside the slab range: one sweep per sign; each masks the
-        # pixels whose rays point the other way, so the images are disjoint.
-        if return_intermediate:
-            raise ValueError(
-                f"sweep_render: eye (axis {axis} coord {eye_a:.3f}) lies "
-                "inside the volume slab range; no single sweep "
-                "intermediate exists")
-        imgs = [_sweep_core(volume.data, tf, light_volume, camera, axis=axis,
-                            sign=s, **kw)[0] for s in (1, -1)]
-        return imgs[0] + imgs[1]
-    img, inter, grid = _sweep_core(volume.data, tf, light_volume, camera,
-                                   axis=axis, sign=sign, **kw)
+    inside = (z_first - eye_a) * sign <= 1e-6
+    vol_p, light_p = permute_volumes(volume.data, light_volume, axis)
+    scans = []
+    for s in ((1, -1) if inside else (sign,)):
+        sched = _plane_schedule(camera, axis, s, n_planes, config.width,
+                                config.height)
+        scans.append((sched, *base_grid(sched, U, V)))
+    return SweepPlan(axis, vol_p, light_p, scans)
+
+
+def sweep_render(volume: Volume, tf: TransferFunction, light_volume: Tensor,
+                 camera: Camera, config: RenderConfig,
+                 return_intermediate: bool = False, method: str = "auto"):
+    """Render an (H, W, 4) RGBA image from the (D, H, W, 3) light volume
+    over the scans of :func:`sweep_plan`; an eye inside the slab range
+    sums its two sweeps' images, each of which masks the pixels whose rays
+    point the other way. ``method`` picks the plane scan's form
+    (:func:`_scan_planes`): "auto", "torch" or "cuda"."""
+    full_fp32_matmul()
+    plan = sweep_plan(volume, light_volume, camera, config)
+    if return_intermediate and len(plan.scans) > 1:
+        eye_a = float(camera.host("eye")[plan.axis])
+        raise ValueError(
+            f"sweep_render: eye (axis {plan.axis} coord {eye_a:.3f}) lies "
+            "inside the volume slab range; no single sweep intermediate "
+            "exists")
+    img = None
+    for sched, u, v in plan.scans:
+        inter = _scan_planes(plan.vol_p, plan.light_p, tf, sched, u, v,
+                             config.ambient, method)
+        part = _warp(inter, sched, plan.axis, config.width, config.height)
+        img = part if img is None else img + part
     if return_intermediate:
-        return img, inter, grid
+        return img, inter, (sched.u_lo, sched.u_hi, sched.v_lo, sched.v_hi,
+                            sched.za)
     return img
 
 
