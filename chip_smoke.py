@@ -58,9 +58,15 @@ no result, without them. It imports nothing but the port. In order it:
    through the wavefront loop, its host waits named; and the frame, a
    correlated step and the interactive frame are timed in turns through
    the kernel and through the wavefront loop;
-   Then the sweep kernels (``csrc/sweep_scan.cu``: the forward, one launch
-   per sweep, one thread per intermediate ray; the backward, one launch
-   per gradient through a sweep): the forward against the plain loop
+   Then the sweep kernels (``csrc/sweep_scan.cu``: the forward, a plane
+   pre-pass and a march, one launch of each per sweep (per chunk of
+   planes under ``sweep_scan.PLANE_BUDGET``; every driven sweep is one
+   chunk), one thread per intermediate ray; the backward, one launch per
+   gradient through a sweep), each kernel's registers and the static
+   instructions of its plane loop (``scripts/sass_counts.py``, where the
+   toolkit has ``cuobjdump``), the planes that the forward's pre-pass left
+   in its scratch against their plain version bit for bit at every scan
+   checked, and the forward against the plain loop
    (``method="torch"``) on the intermediate images and the image, within
    rtol 1e-4, atol 1e-6 of the largest value, on the default frame, the
    eye-inside camera (two sweeps), rank 1 of 2's columns and a strided
@@ -68,18 +74,25 @@ no result, without them. It imports nothing but the port. In order it:
    the whole scan's columns), later also on config 3's guided frame, the
    float16 frame and the float16 light volume at 4 interactions, whose
    +inf texels give NaN where the plain loop's products do (NaN held
-   equal, the NaN pixels of both images counted and equal); its device
-   time (``torch.profiler``) beside its bound on the frame, the eye inside
-   and config 3; ``entry.entry``'s forward, counted; the backward
+   equal, the NaN pixels of both images counted and equal), and the frame
+   with transfer functions of 17, 64 and 256 points; its device time
+   (``torch.profiler``, the pre-pass and the march apart and together)
+   beside its bound, and the pre-pass's beside its own byte bound, on the
+   frame (at each of those point counts), the eye inside and config 3;
+   ``entry.entry``'s
+   forward, counted; the backward
    (through ``SweepScan``) against autograd through the plain loop on the
-   frame's image loss and tests/test_torch_grad.py's sweep loss, within
-   rtol 1e-3, atol 1e-5 of each gradient's largest component, and alone
+   frame's image loss and tests/test_torch_grad.py's sweep loss, and
+   against the plain loop with its plain backward on the frame's image
+   loss with the 64-point TF, within rtol 1e-3, atol 1e-5 of each
+   gradient's largest component, and alone
    against its plain version (``_scan_planes_grad_torch``), timed beside
    its bound; render_state, the frame and the interactive frame in turns
    (plain loop, kernels, kernels, plain loop), and the host waits of one
    render in each form (the kernels' no more than the plain loop's). Every
-   driven path's launch counts include both sweep kernels: the forward
-   once per sweep render, the backward once per gradient through one;
+   driven path's launch counts include the sweep kernels: the pre-pass
+   and the march once per sweep render, the backward once per gradient
+   through one;
 6. drives the correlated update at the default frame, after a
    transfer-function edit (every opacity x 1.5), through ``step()`` with
    the launch counts set to 0 before and read after:
@@ -193,6 +206,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -412,10 +426,11 @@ WINDOWS = collections.Counter()
 MISSING = collections.Counter()
 
 
-def device_ms(what: str, fn, reps: int) -> float:
+def device_ms(what: str, fn, reps: int, by_name: bool = False):
     """Mean device milliseconds per call of ``fn``, which enqueues
     RECORDS[what]: the device time of those kernels and memsets in a
-    ``torch.profiler`` window over ``reps`` calls. A complete window holds
+    ``torch.profiler`` window over ``reps`` calls (with ``by_name``, a dict
+    of each name's). A complete window holds
     reps x RECORDS[what] records, and the result is their sum over
     ``reps``. From some point of a long run on, the profiler loses the
     first one or two records of every window (a memset, the kernel after
@@ -456,15 +471,16 @@ def device_ms(what: str, fn, reps: int) -> float:
             WINDOWS["complete" if counts == want else "short"] += 1
             MISSING.update({name: want[name] - counts[name] for name in want
                             if counts[name] < want[name]})
-            return sum(statistics.fmean(us) * RECORDS[what][name]
-                       for name, us in seen.items()) / 1e3
+            per = {name: statistics.fmean(us) * RECORDS[what][name] / 1e3
+                   for name, us in seen.items()}
+            return per if by_name else sum(per.values())
         WINDOWS["retaken"] += 1
         print(f"profiler window of {reps} x {what} taken again: records "
               f"{counts} of {want}; odd microseconds {odd}")
     if any(counts.values()):
         raise AssertionError(f"{what}: four profiler windows in a row are "
                              "unusable")
-    return 0.0
+    return {name: 0.0 for name in want} if by_name else 0.0
 
 
 def bare_launcher(design: str, pos, pw, r: float, dim):
@@ -750,21 +766,25 @@ COUNTED = {"splat_product_direct": sp.splat_product_direct,
 
 
 TRACE = wt.trace_woodcock_cuda  # the trace kernel's wrapper
-# The sweep kernels' wrappers: the forward once per sweep (two for an eye
-# inside the volume's slab range), the backward once per gradient.
+# The sweep kernels' wrappers: the forward's plane pre-pass and its march
+# once per sweep (two for an eye inside the volume's slab range; one of
+# each per chunk of planes, and every driven sweep is one chunk), the
+# backward once per gradient.
+SWEEP_PREP = ss.sweep_planes
 SWEEP_FWD, SWEEP_BWD = ss.sweep_scan_forward, ss.sweep_scan_backward
 
 
 def reset_counts() -> None:
     torch.cuda.synchronize()
     for fn in (*COUNTED.values(), sp.splat_product_grad_cuda, TRACE,
-               SWEEP_FWD, SWEEP_BWD):
+               SWEEP_PREP, SWEEP_FWD, SWEEP_BWD):
         fn.launches = 0
 
 
 def read_counts() -> dict:
     return {**{name: fn.launches for name, fn in COUNTED.items()},
             "trace_woodcock_cuda": TRACE.launches,
+            "sweep_planes": SWEEP_PREP.launches,
             "sweep_scan_forward": SWEEP_FWD.launches,
             "sweep_scan_backward": SWEEP_BWD.launches}
 
@@ -775,13 +795,14 @@ def expect_launches(what: str, launches: dict, designs: list,
     """Raise unless the splat kernels were launched once for each entry of
     ``designs`` ("direct" or "tiled", with one binning per tiled launch)
     and no more, the trace kernel ``traces`` times (one trace per splat
-    unless given), the sweep's forward kernel ``sweeps`` times and its
-    backward ``sweep_grads`` times: every driven path traces and renders
-    through the kernels."""
+    unless given), the sweep's forward kernels (the plane pre-pass and the
+    march) ``sweeps`` times and its backward ``sweep_grads`` times: every
+    driven path traces and renders through the kernels."""
     want = {"splat_product_direct": designs.count("direct"),
             "splat_product_tiled": designs.count("tiled"),
             "bin_deposits": designs.count("tiled"),
             "trace_woodcock_cuda": len(designs) if traces is None else traces,
+            "sweep_planes": sweeps,
             "sweep_scan_forward": sweeps,
             "sweep_scan_backward": sweep_grads}
     if launches != want:
@@ -1218,6 +1239,14 @@ SWEEP_RTOL, SWEEP_ATOL_REL = 1e-4, 1e-6
 SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL = 1e-3, 1e-5
 SWEEP_TURNS = ("torch", "cuda", "cuda", "torch")
 RECORDS["sweep grad"] = {"sweep_scan_grad_kernel": 1}
+# Transfer functions of any size: the forward is timed at these point
+# counts at the default frame (and at the scene's own 4), each held
+# against the plain loop; the 64-point one also goes through a gradient.
+TF_POINTS = (17, 64, 256)
+# Float operations of the plane pre-pass: a lerped texel 3 a channel; a
+# column or row about 35 (its coordinate 3, two hat rows of 14, the mask).
+PREP_OPS_PER_TEXEL_CHANNEL = 3
+PREP_OPS_PER_RAY_LINE = 35
 # tests/test_torch_grad.py's sweep loss at its scene: a 16^3 smoke cloud
 # (seed 5), an 8^3 light volume and a weight of the 12^2 image, seeded.
 SMALL_TF = (np.array([0.0, 0.25, 0.6, 1.0], np.float32),
@@ -1261,6 +1290,68 @@ def sweep_bound(vol_p, light_p, n_v: int, n_u: int, n_planes: int,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def prepass_bound(vol_p, light_p, c, n_u: int, n_v: int) -> dict:
+    """The least time of the plane pre-pass of one scan, the larger of: the
+    bytes it must move (the slabs its planes lerp and the rays'
+    coordinates read once, 48 B of constants a plane, its prepared planes
+    written once, ``sweep_scan.plane_bytes`` each) at HBM_BYTES_PER_S, and
+    its operations (PREP_OPS_PER_TEXEL_CHANNEL a lerped texel and channel,
+    PREP_OPS_PER_RAY_LINE a column or row) at FP32_FLOP_PER_S."""
+    nc, nb = vol_p.shape[1:]
+    nc2, nb2 = light_p.shape[1:3]
+    planes = c.fz.shape[0]
+    slabs = int(torch.unique(torch.cat([c.k0, c.k1])).numel())
+    lslabs = int(torch.unique(torch.cat([c.lk0, c.lk1])).numel())
+    written = planes * ss.plane_bytes(nc, nb, nc2, nb2, n_u, n_v)
+    nbytes = (4 * (slabs * nc * nb + lslabs * nc2 * nb2 * 3 + n_u + n_v)
+              + 48 * planes + written)
+    ops = planes * (PREP_OPS_PER_TEXEL_CHANNEL * (nc * nb + 3 * nc2 * nb2)
+                    + PREP_OPS_PER_RAY_LINE * (n_u + n_v))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return {"bytes": nbytes, "operations": ops, "prepared_bytes": written,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_planes(what: str, vol_p, light_p, tf, c, u, v, amb,
+                 got_out) -> dict:
+    """The planes that the forward's pre-pass left in its scratch against
+    their plain version, bit for bit (NaN equal), and the chunks the
+    forward made of them; that forward's image is ``got_out``'s (the same
+    scan through the render path) bit for bit."""
+    u = u.contiguous()
+    out, scratch = ss._forward(vol_p, light_p, tf.positions.contiguous(),
+                               tf.colors.contiguous(), c, u, v, amb)
+    got, (lo, hi) = ss._filled(scratch)
+    want = ss._prepare_planes_torch(vol_p, light_p, c, u, v, lo, hi)
+    same = all(bool(torch.equal(g.nan_to_num(), w.nan_to_num())
+                    and torch.equal(torch.isnan(g), torch.isnan(w)))
+               for g, w in zip(got, want))
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.double(), w.double()
+        fin = torch.isfinite(g) & torch.isfinite(w)
+        if bool(fin.any()):
+            err = max(err, float((g - w)[fin].abs().max()))
+    per = ss.plane_bytes(*vol_p.shape[1:], *light_p.shape[1:3], u.shape[0],
+                         v.shape[0])
+    chunks = len(ss.chunk_plan(c.fz.shape[0], per, ss.PLANE_BUDGET))
+    image_same = bool(_same_bits(out.reshape(-1), got_out.reshape(-1)).all())
+    print(f"plane pre-pass vs its plain version, {what}: planes {lo}-{hi} "
+          f"of the forward's scratch equal bit for bit {same} (max_abs_err "
+          f"{err:.3e}); {c.fz.shape[0]} planes of {per} B, {chunks} "
+          f"chunk(s) under {ss.PLANE_BUDGET} B; its image the render's bit "
+          f"for bit {image_same}")
+    if not same:
+        raise AssertionError(f"{what}: the plane pre-pass differs from its "
+                             "plain version")
+    if not image_same:
+        raise AssertionError(f"{what}: the forward gave another image than "
+                             "the render path's")
+    return {"bit_equal": same, "max_abs_err": err, "plane_bytes": per,
+            "chunks": chunks, "planes_checked": [lo, hi]}
+
+
 def sweep_close(got, want, what: str, rtol: float = SWEEP_RTOL,
                 atol_rel: float = SWEEP_ATOL_REL) -> dict:
     """Assert a kernel's result within rtol and atol_rel x the largest
@@ -1288,8 +1379,11 @@ def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
     columns, as a rank scans them, and equal bit for bit to the whole
     scan's columns), and on the image where the whole render is scanned
     (``sweep_render`` by each method, whose NaN pixels it counts). With
-    ``timed``: the kernel's device time (``torch.profiler``), the call's
-    and the plain loop's (CUDA events) and the bound, per render."""
+    ``timed``: the forward's device time (``torch.profiler``), the plane
+    pre-pass's and the march's apart, the call's and the plain loop's
+    (CUDA events) and the bounds, per render. Each scan's forward is also
+    run alone, its planes held against their plain version
+    (check_planes)."""
     axis, vol_p, light_p, scans = sweep_render.sweep_plan(
         volume, light_volume, camera, rc)
     amb = rc.ambient
@@ -1298,7 +1392,8 @@ def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
         return sweep_render._scan_planes(vol_p, light_p, tf, sched, u, v,
                                          amb, method)
 
-    res = {"sweeps": len(scans), "rays": [], "planes": []}
+    res = {"sweeps": len(scans), "rays": [], "planes": [], "prepass": [],
+           "tf_points": tf.positions.shape[0]}
     parts = []
     for i, (sched, u, v) in enumerate(scans):
         whole = None
@@ -1306,16 +1401,22 @@ def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
             whole = scan("cuda", sched, u, v)[:, columns]
             u = u[columns]
         parts.append((sched, u, v))
-        before = SWEEP_FWD.launches
+        before = (SWEEP_PREP.launches, SWEEP_FWD.launches)
         got = scan("cuda", sched, u, v)
         torch.cuda.synchronize()
-        if SWEEP_FWD.launches - before != 1:
-            raise AssertionError(f"{what}: {SWEEP_FWD.launches - before} "
-                                 "forward launches for one scan")
+        made = (SWEEP_PREP.launches - before[0],
+                SWEEP_FWD.launches - before[1])
+        if made != (1, 1):
+            raise AssertionError(f"{what}: {made} pre-pass and march "
+                                 "launches for one scan")
         want = scan("torch", sched, u, v)
         res[f"sweep {i}"] = sweep_close(
             got, want, f"sweep kernel vs plain loop, {what}, sweep {i} "
             f"({v.shape[0]}x{u.shape[0]} rays x {sched.za.shape[0]} planes)")
+        res["prepass"].append(check_planes(
+            f"{what}, sweep {i}", vol_p, light_p, tf,
+            sweep_render.scan_constants(vol_p, light_p, sched, u, v), u, v,
+            amb, got))
         res["rays"].append(v.shape[0] * u.shape[0])
         res["planes"].append(sched.za.shape[0])
         if whole is not None:
@@ -1328,12 +1429,13 @@ def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
     res["max_abs_err"] = max(res[f"sweep {i}"]["max_abs_err"]
                              for i in range(len(scans)))
     if columns is None:
-        before = SWEEP_FWD.launches
+        before = (SWEEP_PREP.launches, SWEEP_FWD.launches)
         img = sweep_render.sweep_render(volume, tf, light_volume, camera, rc,
                                         method="cuda")
         torch.cuda.synchronize()
-        res["launches"] = SWEEP_FWD.launches - before
-        if res["launches"] != len(scans):
+        res["launches"] = SWEEP_FWD.launches - before[1]
+        if (SWEEP_PREP.launches - before[0], res["launches"]) != (
+                len(scans), len(scans)):
             raise AssertionError(f"{what}: {res['launches']} forward "
                                  f"launches for {len(scans)} sweeps")
         want = sweep_render.sweep_render(volume, tf, light_volume, camera,
@@ -1345,32 +1447,52 @@ def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
                              for m, im in (("cuda", img), ("torch", want))}
     if not timed:
         return res
-    key = f"sweep x{len(parts)}"
-    RECORDS[key] = {"sweep_scan_kernel": len(parts)}
+    n = len(parts)
+    key = f"sweep x{n}"
+    RECORDS[key] = {"sweep_planes_kernel": n, "sweep_scan_kernel": n}
 
     def render(method):
         return [scan(method, *p) for p in parts]
 
-    dev_ms = device_ms(key, lambda: render("cuda"), reps=5)
-    if dev_ms == 0.0:
+    per = device_ms(key, lambda: render("cuda"), reps=5, by_name=True)
+    prep_ms, march_ms = per["sweep_planes_kernel"], per["sweep_scan_kernel"]
+    dev_ms = prep_ms + march_ms
+    if min(prep_ms, march_ms) == 0.0:
         raise AssertionError("torch.profiler showed no device time")
     call = cuda_ms(lambda: render("cuda"), reps=5)
     plain = cuda_ms(lambda: render("torch"), reps=1, warmup=0)
-    bounds = [sweep_bound(vol_p, light_p, v.shape[0], u.shape[0],
-                          sched.za.shape[0], tf.positions.shape[0])
-              for sched, u, v in parts]
-    bound = {"bytes": sum(b["bytes"] for b in bounds),
-             "operations": sum(b["operations"] for b in bounds),
-             "samples": sum(b["samples"] for b in bounds),
-             "bound_ms": sum(b["bound_ms"] for b in bounds),
-             "bound_by": bounds[0]["bound_by"]}
-    print(f"sweep {what}: kernel device time {dev_ms:.4f} ms, call "
-          f"{call:.3f} ms, plain loop {plain:.3f} ms; bound "
+    consts = [sweep_render.scan_constants(vol_p, light_p, *p) for p in parts]
+    prep_plain = cuda_ms(lambda: [ss._prepare_planes_torch(
+        vol_p, light_p, c, u, v, 0, c.fz.shape[0])
+        for c, (_, u, v) in zip(consts, parts)], reps=3)
+
+    def total(bounds):
+        out = {k: sum(b[k] for b in bounds) for k in bounds[0]
+               if k != "bound_by"}
+        return {**out, "bound_by": bounds[0]["bound_by"]}
+
+    bound = total([sweep_bound(vol_p, light_p, v.shape[0], u.shape[0],
+                               sched.za.shape[0], tf.positions.shape[0])
+                   for sched, u, v in parts])
+    prep = total([prepass_bound(vol_p, light_p, c, u.shape[0], v.shape[0])
+                  for c, (_, u, v) in zip(consts, parts)])
+    print(f"sweep {what}: forward device time {dev_ms:.4f} ms (pre-pass "
+          f"{prep_ms:.4f}, march {march_ms:.4f}) at "
+          f"{tf.positions.shape[0]} TF points; call {call:.3f} ms, plain loop {plain:.3f} ms; bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
           f"{bound['samples']} samples, {bound['bytes']} B), "
-          f"{bound['bound_ms'] / dev_ms:.1%} of it ({tag})")
-    res.update({"ms": dev_ms, "call_ms": call, "plain_ms": plain, **bound,
-                "share_of_bound": bound["bound_ms"] / dev_ms})
+          f"{bound['bound_ms'] / dev_ms:.1%} of it; pre-pass bound "
+          f"{prep['bound_ms']:.4f} ms ({prep['bound_by']}: "
+          f"{prep['bytes']} B, {prep['prepared_bytes']} B prepared in "
+          f"{sum(r['chunks'] for r in res['prepass'])} chunk(s)), "
+          f"{prep['bound_ms'] / prep_ms:.1%} of it, its plain version "
+          f"{prep_plain:.3f} ms ({tag})")
+    res.update({"ms": dev_ms, "prepass_ms": prep_ms, "march_ms": march_ms,
+                "call_ms": call, "plain_ms": plain, **bound,
+                "share_of_bound": bound["bound_ms"] / dev_ms,
+                "prepass_timed": {"ms": prep_ms, "plain_ms": prep_plain,
+                                  **prep, "share_of_bound":
+                                  prep["bound_ms"] / prep_ms}})
     return res
 
 
@@ -1391,12 +1513,58 @@ def sweep_grads(volume, tf, light_volume, camera, rc, weight,
 GRAD_NAMES = ("volume", "light volume", "tf positions", "tf colours")
 
 
+class PlainScan(torch.autograd.Function):
+    """The plain loop with the backward's plain version
+    (``_scan_planes_grad_torch``) as its gradient: the plain form of
+    ``kernels/sweep_scan.SweepScan``. Autograd through the plain loop keeps
+    every operator's inputs (a 64-point TF at the default frame would hold
+    hundreds of GB); this keeps none."""
+
+    @staticmethod
+    def forward(ctx, vol_p, light_p, pos, cols, c, u, v, ambient):
+        tf = TransferFunction(positions=pos, colors=cols, lut=None)
+        out = sweep_render._scan_planes_torch(vol_p, light_p, tf, c, u, v,
+                                              ambient)
+        ctx.save_for_backward(vol_p, light_p, pos, cols, u, v, out)
+        ctx.c, ctx.ambient = c, ambient
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        vol_p, light_p, pos, cols, u, v, out = ctx.saved_tensors
+        tf = TransferFunction(positions=pos, colors=cols, lut=None)
+        grads = sweep_render._scan_planes_grad_torch(
+            vol_p, light_p, tf, ctx.c, u, v, ctx.ambient, out,
+            grad_out.contiguous())
+        return (*grads, None, None, None, None)
+
+
+@contextlib.contextmanager
+def scanned_plainly():
+    """Every plane scan through PlainScan while inside."""
+    saved = sweep_render._scan_planes
+
+    def plain(vol_p, light_p, tf, sched, u, v, ambient, method="auto"):
+        c = sweep_render.scan_constants(vol_p, light_p, sched, u, v)
+        return PlainScan.apply(vol_p, light_p, tf.positions, tf.colors, c, u,
+                               v, ambient)
+
+    sweep_render._scan_planes = plain
+    try:
+        yield
+    finally:
+        sweep_render._scan_planes = saved
+
+
 def check_sweep_grad(what: str, volume, tf, light_volume, camera, rc,
-                     weight, tag, *, timed: bool = False) -> dict:
+                     weight, tag, *, timed: bool = False,
+                     plain_backward: bool = False) -> dict:
     """The backward kernel (through ``SweepScan``) against autograd through
-    the plain loop, for the loss sum(image x ``weight``): each gradient
-    within SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL x its largest component,
-    one backward launch per sweep. With ``timed``: the kernel alone
+    the plain loop (``plain_backward``: through PlainScan, the plain loop
+    with the backward's plain version), for the loss sum(image x
+    ``weight``): each gradient within SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL
+    x its largest component, one backward launch per sweep. With
+    ``timed``: the kernel alone
     against its plain version (``_scan_planes_grad_torch``) on the image's
     own cotangent of the intermediate, its device time beside the bound,
     and both whole gradients timed."""
@@ -1405,11 +1573,14 @@ def check_sweep_grad(what: str, volume, tf, light_volume, camera, rc,
     got = sweep_grads(*args, "cuda")
     torch.cuda.synchronize()
     launches = SWEEP_BWD.launches - before
-    want = sweep_grads(*args, "torch")
+    with scanned_plainly() if plain_backward else contextlib.nullcontext():
+        want = sweep_grads(*args, "torch")
     if SWEEP_BWD.launches - before != launches or launches != 1:
         raise AssertionError(f"{what}: {launches} backward launches")
-    res = {name: sweep_close(g, w, f"sweep backward (SweepScan) vs autograd "
-                             f"through the plain loop, {what}: {name}",
+    against = ("the plain loop with its plain backward" if plain_backward
+               else "autograd through the plain loop")
+    res = {name: sweep_close(g, w, f"sweep backward (SweepScan) vs "
+                             f"{against}, {what}: {name}",
                              SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL)
            for name, g, w in zip(GRAD_NAMES, got, want)}
     res["max_abs_err"] = max(res[n]["max_abs_err"] for n in GRAD_NAMES)
@@ -1476,20 +1647,59 @@ def small_grad_scene(dev):
             RenderConfig(width=12, height=12, sampling_rate=1.5), w)
 
 
+def many_point_tf(tf, n: int, seed: int = 12):
+    """A transfer function of ``n`` points as a TF editor makes them: seeded
+    sorted positions over ``tf``'s range, ``tf``'s colours there, each
+    channel moved by a seeded factor in [0.8, 1.2] and clipped to [0, 1]."""
+    lo, hi = (float(x) for x in tf.positions[[0, -1]])
+    rs = np.random.default_rng(seed)
+    pos = np.sort(rs.uniform(lo, hi, n)).astype(np.float32)
+    pos[0], pos[-1] = lo, hi
+    cols = tf.sample(torch.from_numpy(pos).to(tf.positions.device))
+    cols = np.clip(cols.cpu().numpy() * rs.uniform(0.8, 1.2, (n, 4)), 0.0,
+                   1.0).astype(np.float32)
+    return TransferFunction.from_points(pos, cols, device=tf.positions.device)
+
+
+def sweep_sass(tag) -> dict:
+    """Each sweep kernel's registers and the static instructions of its
+    plane loop (``scripts/sass_counts.py`` on the built library), where the
+    toolkit has ``cuobjdump``; the registers are also in the build's
+    ``-Xptxas -v`` report."""
+    spec = importlib.util.spec_from_file_location(
+        "sass_counts", Path(__file__).resolve().parent / "scripts"
+        / "sass_counts.py")
+    sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass)
+    if not os.path.exists(sass.cuobjdump()):
+        print(f"SASS of the sweep kernels: not measured, no cuobjdump beside "
+              f"nvcc ({tag})")
+        return {}
+    counts = sass.report(ss.build()[0], sass.kernel_names(ss.SOURCE))
+    for name, c in counts.items():
+        print(f"SASS of {name}: {c['registers']} registers, {c['loop']} "
+              f"instructions in its main loop (loops inside it: "
+              f"{c['inner']}), {c['instructions']} in all ({tag})")
+    return counts
+
+
 def sweep_kernel_phase(scene, config, state, dev, tag) -> dict:
-    """The sweep kernels at the default frame: the forward against the
-    plain loop on the frame, the eye-inside camera (two sweeps), a rank's
-    half of the columns and a strided fifth of them, timed beside the
-    bound on the frame and the eye inside; ``entry``'s forward, counted;
-    the backward against autograd through the plain loop on the frame's
-    image loss (timed, and the kernel alone against its plain version) and
-    on tests/test_torch_grad.py's sweep loss; then render_state, the frame
+    """The sweep kernels at the default frame: their registers and static
+    instructions; the forward against the plain loop on the frame, the
+    eye-inside camera (two sweeps), a rank's half of the columns and a
+    strided fifth of them, timed beside the bound on the frame and the eye
+    inside (the plane pre-pass and the march apart); the frame with TFs
+    of 17, 64 and 256 points, timed; ``entry``'s forward, counted; the backward against
+    autograd through the plain loop on the frame's image loss (timed, and
+    the kernel alone against its plain version) and on
+    tests/test_torch_grad.py's sweep loss, and against the plain loop with
+    its plain backward with the 64-point TF; then render_state, the frame
     and a packed interactive frame in turns through the kernels and the
     plain loop, and the host waits of one render in each form."""
     t0 = time.perf_counter()
     rc, lv = config.render, state.light_volume_accum
     vol, tf, camera = scene.volume, scene.tf, scene.camera
-    res = {}
+    res = {"sass": sweep_sass(tag)}
     res["default frame"] = check_sweep(
         "default frame", vol, tf, lv, camera, rc, tag, timed=True)
     inside = Camera.create(eye=(0.5, 0.5, 0.45), center=(0.5, 0.5, 2.0))
@@ -1504,6 +1714,14 @@ def sweep_kernel_phase(scene, config, state, dev, tag) -> dict:
     res["strided columns"] = check_sweep(
         "every fifth column (a strided slice, a ragged last block)", vol,
         tf, lv, camera, rc, tag, columns=slice(1, None, 5))
+    # Transfer functions of any size, timed: the compare loop runs over
+    # every point, so the march's time grows with them.
+    many = {n: many_point_tf(tf, n) for n in TF_POINTS}
+    for n, tf_n in many.items():
+        res[f"{n}-point TF"] = check_sweep(
+            f"default frame, a {n}-point TF", vol, tf_n, lv, camera, rc, tag,
+            timed=True)
+    tf64 = many[64]
 
     # entry.py's forward step, counted.
     forward, (e_scene, e_state) = port_entry.entry()
@@ -1515,8 +1733,9 @@ def sweep_kernel_phase(scene, config, state, dev, tag) -> dict:
               + e_launches["splat_product_tiled"])
     print(f"entry.entry's forward (a full trace + splat + sweep, "
           f"{tuple(e_img.shape)}): launches {e_launches} ({tag})")
-    if (e_launches["trace_woodcock_cuda"], splats,
-            e_launches["sweep_scan_forward"]) != (1, 1, 1) or not bool(
+    if (e_launches["trace_woodcock_cuda"], splats, e_launches[
+            "sweep_planes"], e_launches["sweep_scan_forward"]) != (
+            1, 1, 1, 1) or not bool(
             torch.isfinite(e_img).all()) or e_img.device != dev:
         raise AssertionError("entry's forward did not run each kernel once "
                              "on the card")
@@ -1529,6 +1748,9 @@ def sweep_kernel_phase(scene, config, state, dev, tag) -> dict:
         tag, timed=True)
     res["grad small"] = check_sweep_grad(
         "tests/test_torch_grad.py's sweep loss", *small_grad_scene(dev), tag)
+    res["grad 64-point TF"] = check_sweep_grad(
+        "the default frame's image loss, a 64-point TF", vol, tf64, lv,
+        camera, rc, weight, tag, plain_backward=True)
 
     # End to end, the kernels against the plain loop, in turns; the host
     # waits of one render in each form.
@@ -1568,14 +1790,16 @@ def sweep_kernel_phase(scene, config, state, dev, tag) -> dict:
             "end_to_end_in_turns": turns, "host_waits": waits}
 
 
-def sweep_rows(phase: dict, by_path: dict, grad_launches: int,
-               extra: dict) -> list:
+def sweep_rows(phase: dict, by_path: dict, plane_launches: int,
+               grad_launches: int, extra: dict) -> list:
     """The ``kernels`` rows of the sweep kernels: the forward's numbers at
-    the default frame and its launches on every driven path (the default
-    frame's at the top), the backward's on the default frame's image loss
-    and its launches from one ``trajectory_gradients``."""
+    the default frame (its plane pre-pass and march together, and at
+    each TF size timed) and its launches on every driven path (the default
+    frame's at the top), the pre-pass's own, the backward's on the default frame's
+    image loss and its launches from one ``trajectory_gradients``."""
     lists = {**phase["lists"], **extra}
     d, g = lists["default frame"], lists["grad default frame"]
+    sass_counts = lists.pop("sass")
     common = {"route": "cuda", "source": "cpm_tpu_torch/csrc/sweep_scan.cu",
               "replaces": "cpm_tpu/ops/sweep_render.py:203",
               "held_against_plain": True, "library_ms": None,
@@ -1589,14 +1813,41 @@ def sweep_rows(phase: dict, by_path: dict, grad_launches: int,
                             "frame)"],
         "launches_by_path": by_path,
         "max_abs_err": d["max_abs_err"], "ms": d["ms"],
+        "ms_is": "the plane pre-pass and the march together, one chunk",
+        "prepass_ms": d["prepass_ms"], "march_ms": d["march_ms"],
+        "by_tf_points": {
+            r["tf_points"]: {k: r[k] for k in (
+                "ms", "prepass_ms", "march_ms", "bound_ms", "share_of_bound",
+                "max_abs_err")}
+            for r in (d, *(lists[f"{n}-point TF"] for n in TF_POINTS))},
         "call_ms": d["call_ms"], "plain_ms": d["plain_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
         "share_of_bound": d["share_of_bound"],
+        "sass": sass_counts,
         "lists": {k: v for k, v in lists.items()
                   if not k.startswith("grad ")},
         "entry_launches": phase["entry_launches"],
         "end_to_end_in_turns": phase["end_to_end_in_turns"],
         "host_waits_per_render": phase["host_waits"]}
+    p = d["prepass_timed"]
+    prepass = {
+        "name": "sweep_planes", **common,
+        "replaces": "cpm_tpu/ops/sweep_render.py:224",
+        "replaces_note": "no Pallas kernel: the slab lerps and hat matrices "
+                         "of each plane inside the lax.scan of _scan_planes "
+                         "(:224-251)",
+        "caller": "render_state (default frame), before each chunk's march",
+        "launches": plane_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in d["prepass"]),
+        "max_abs_err_of": "every field against _prepare_planes_torch at the "
+                          "default frame, held bit for bit (NaN equal) at "
+                          "every checked scan",
+        "ms": p["ms"], "plain_ms": p["plain_ms"],
+        "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+        "share_of_bound": p["share_of_bound"], "bytes": p["bytes"],
+        "prepared_bytes": p["prepared_bytes"],
+        "plane_budget_bytes": ss.PLANE_BUDGET,
+        "chunks": [r["chunks"] for r in d["prepass"]]}
     backward = {
         "name": "sweep_scan_backward", **common,
         "replaces_note": "no TPU kernel: the reference differentiates the "
@@ -1611,7 +1862,7 @@ def sweep_rows(phase: dict, by_path: dict, grad_launches: int,
         "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
         "share_of_bound": g["share_of_bound"],
         "lists": {k: v for k, v in lists.items() if k.startswith("grad ")}}
-    return [forward, backward]
+    return [forward, prepass, backward]
 
 
 
@@ -3160,7 +3411,7 @@ def run_fit(tag) -> dict:
         raise AssertionError(f"fit_tf_torch missed theta by {err:.1%}")
     if launches["splat_product_grad_cuda"] < fit.N_STEPS:
         raise AssertionError("the fit did not run the backward kernel")
-    if min(launches["sweep_scan_forward"],
+    if min(launches["sweep_planes"], launches["sweep_scan_forward"],
            launches["sweep_scan_backward"]) < fit.N_STEPS:
         raise AssertionError("the fit did not render through the sweep "
                              "kernels, forward and backward")
@@ -3324,8 +3575,8 @@ def gradients_default(delta_list, dev, tag) -> dict:
           + ", ".join(f"{k} {a:.6e} / {b:.6e}" for k, (a, b) in fd.items())
           + f"; one gradient launched {lin_launches}, peak "
           f"{lin_peak / 2**30:.2f} GiB ({tag})")
-    if (lin_launches["sweep_scan_forward"], lin_launches[
-            "sweep_scan_backward"]) != (1, 1):
+    if (lin_launches["sweep_planes"], lin_launches["sweep_scan_forward"],
+            lin_launches["sweep_scan_backward"]) != (1, 1, 1):
         raise AssertionError("the linear loss's gradient did not render "
                              "through the sweep kernels once each way")
     del grads, xs
@@ -3356,7 +3607,7 @@ def gradients_default(delta_list, dev, tag) -> dict:
     if full_launches["splat_product_grad_cuda"] < 1 or full_launches[
             "splat_product_direct"] < 1:
         raise AssertionError("the gradient did not run both splat kernels")
-    if min(full_launches["sweep_scan_forward"],
+    if min(full_launches["sweep_planes"], full_launches["sweep_scan_forward"],
            full_launches["sweep_scan_backward"]) < 1:
         raise AssertionError("the gradient did not run both sweep kernels")
     del g
@@ -4176,7 +4427,8 @@ def main() -> None:
         "trajectory_gradients": grads["launches"][sweeps],
         "fit_tf_torch (12 steps)": grads["fit"]["launches"][sweeps]}
     rows.extend(sweep_rows(
-        swept, by_path, grads["launches"]["sweep_scan_backward"],
+        swept, by_path, launches["sweep_planes"],
+        grads["launches"]["sweep_scan_backward"],
         {"config 3 guided frame": guided["sweep_check"],
          "float16 frame": half["sweep_check"],
          "float16 light volume at 4 interactions (+inf texels)": half[

@@ -13,10 +13,11 @@ likewise fp32-accurate. An eye inside the volume's slab range renders two
 sweeps, one per marching sign, and sums them. :func:`march_zplanes_oracle`
 is the sweep's exact oracle: a per-ray march over the same planes.
 
-On the card the plane scan is two kernels (``csrc/sweep_scan.cu``, behind
-``kernels/sweep_scan.py``): the forward marches each intermediate ray over
-every plane in one launch, and the backward yields the gradients that
-autograd takes through the plain loop. Both forms read
+On the card the plane scan runs as kernels (``csrc/sweep_scan.cu``,
+behind ``kernels/sweep_scan.py``): the forward prepares each plane once (a
+pre-pass) and marches each intermediate ray over the prepared planes, and
+the backward yields the gradients that autograd takes through the plain
+loop; the transfer function may have any number of points. Both forms read
 :func:`scan_constants`; ``method="auto"`` takes the kernels for CUDA
 tensors and the plain loop (:func:`_scan_planes_torch`, whose backward's
 plain version is :func:`_scan_planes_grad_torch`) for CPU tensors.

@@ -99,3 +99,39 @@ def test_hat_matrix_matches():
         np.testing.assert_allclose(
             tsw._hat_matrix(torch.from_numpy(x), n).numpy(),
             np.asarray(jsw._hat_matrix(jnp.asarray(x), n)), atol=1e-6)
+
+
+def test_the_eye_inside_at_12_pixels_differs_in_one_edge_row(scene):
+    """The reference's last-bit hazard, pinned (not a tolerance): at 12^2
+    the +1 sweep's outermost rays land on the intermediate image's edge,
+    and whether the edge test ``fj > -0.5`` of ``_warp`` draws the image's
+    last row hangs on the last bit of ``o + t * d``, which the port rounds
+    once (a float64 fused multiply-add) and the reference's compiled
+    program rounds otherwise. The intermediate images agree within ATOL;
+    the images agree everywhere but that row, which the port draws and the
+    reference leaves empty."""
+    (jvol, jtf, jlv), (tvol, ttf, tlv) = scene
+    jcam, tcam = _cameras((0.5, 0.55, 0.3), (0.5, 0.5, 0.9))
+    axis, _ = tsw.principal_axis(tcam)
+    kw = dict(axis=axis, n_planes=32, inter_u=128, inter_v=128, width=12,
+              height=12, ambient=0.05)
+    imgs = {"port": 0.0, "reference": 0.0}
+    for sign in (1, -1):
+        jimg, jinter, _ = jsw._sweep_core(jvol.data, jtf, jlv, jcam,
+                                          sign=sign, **kw)
+        timg, tinter, _ = tsw._sweep_core(tvol.data, ttf, tlv, tcam,
+                                          sign=sign, **kw)
+        np.testing.assert_allclose(tinter.numpy(), np.asarray(jinter),
+                                   atol=ATOL)
+        imgs["port"] = imgs["port"] + timg.numpy()
+        imgs["reference"] = imgs["reference"] + np.asarray(jimg)
+    cfg = dict(width=12, height=12, sampling_rate=2.0)
+    got = tsw.sweep_render(tvol, ttf, tlv, tcam, RenderConfig(**cfg)).numpy()
+    want = np.asarray(jsw.sweep_render(jvol, jtf, jlv, jcam,
+                                       JRenderConfig(**cfg)))
+    np.testing.assert_allclose(got, imgs["port"], atol=ATOL)
+    np.testing.assert_allclose(want, imgs["reference"], atol=ATOL)
+    np.testing.assert_allclose(got[:-1], want[:-1], atol=ATOL)
+    assert float(want[:-1, :, 3].max()) > 0.05
+    assert not want[-1].any()
+    assert (got[-1, :, 3] > 0.0).sum() == 11

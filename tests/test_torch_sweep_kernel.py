@@ -22,8 +22,21 @@ planes) and tests/test_torch_grad.py (a 12^2 image at sampling rate 1.5):
   volume, the light volume and the TF's colours and positions, at the
   default sweep, the eye inside, a column slice and a volume region that
   sits exactly on a TF point;
+- transfer functions of any size: the plain loop and its backward at 17
+  and 64 points against the reference's ``_scan_planes`` and ``jax.grad``
+  of it; the kernels' rule for the TF (the last segment with
+  ``x >= pos[s]`` found by compares, then that one segment's lerp), run
+  here in torch, equal bit for bit to ``TransferFunction.sample`` at 1 to
+  256 points, unsorted and tied ones, NaN and infinities included;
+- the forward's plane pre-pass: its plain version
+  (``kernels/sweep_scan._prepare_planes_torch``) against the reference's
+  per-plane slabs and ``_hat_matrix``'s nonzero taps, and the chunk plan
+  (planes under a byte budget) as a pure function;
 - on the card (marked ``cuda``): each kernel against its plain version,
-  the forward also on volumes with +inf texels, NaN equal.
+  the forward also on volumes with +inf texels, NaN equal, both at 17, 64
+  and 256 TF points; the pre-pass bit for bit; a forward in four chunks
+  bit for bit against one chunk; the backward with its TF table in device
+  memory.
 
 Tolerances: values to rtol 1e-5; gradients to rtol 1e-4 with an absolute
 floor of 1e-5 of the largest component (float32 sums in another order:
@@ -36,6 +49,7 @@ The reference is imported inside the tests that use it, so that the card
 tests also run where JAX is not installed (``--noconftest``).
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -107,7 +121,7 @@ def _light(seed: int = 2) -> np.ndarray:
 
 
 def _scan_inputs(eye=EYE, center=CENTER, columns=slice(None), tie=False,
-                 device="cpu", pos=TF_POS):
+                 device="cpu", pos=TF_POS, cols=TF_COLS):
     """The permuted volumes, TF, schedule and rays of one sweep of
     ``SCAN``'s size along the camera's principal axis, on ``device``."""
     cam = tcamera.Camera.create(eye=eye, center=center, device=device)
@@ -115,7 +129,7 @@ def _scan_inputs(eye=EYE, center=CENTER, columns=slice(None), tie=False,
     data = torch.from_numpy(_data(tie)).to(device)
     light = torch.from_numpy(_light()).to(device)
     vol_p, light_p = tsw.permute_volumes(data, light, axis)
-    tf = ttypes.TransferFunction.from_points(pos, TF_COLS, device=device)
+    tf = ttypes.TransferFunction.from_points(pos, cols, device=device)
     sched = tsw._plane_schedule(cam, axis, sign, SCAN["n_planes"],
                                 SCAN["width"], SCAN["height"])
     u, v = tsw.base_grid(sched, SCAN["inter_u"], SCAN["inter_v"])
@@ -196,6 +210,29 @@ def test_the_wrapper_refuses_cpu_tensors():
         ss.sweep_scan_backward(vol_p, light_p, tf.positions, tf.colors, c, u,
                                v, 0.05, out, out)
     assert ss.sweep_scan_forward.launches == before
+
+
+def test_the_wrappers_arguments_mirror_the_sources_struct():
+    """``kernels/sweep_scan._Args`` holds the fields of ``struct ScanArgs``
+    in csrc/sweep_scan.cu, in order and each once, with C's types."""
+    import re
+
+    body = re.search(r"struct ScanArgs \{(.*?)\n\};", ss.SOURCE.read_text(),
+                     re.S).group(1)
+    want = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            kind = ("ptr" if "*" in decl else "int" if decl.startswith("int")
+                    else "float")
+            names = (decl.split("*", 1)[1] if kind == "ptr"
+                     else decl.split(None, 1)[1])
+            want += [(name.strip(), kind) for name in names.split(",")]
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+             ctypes.c_float: "float"}
+    got = [(name, kinds[t]) for name, t in ss._Args._fields_]
+    assert got == want
+    assert len({name for name, _ in got}) == len(got)
 
 
 # --- the constants against the reference -------------------------------------
@@ -521,6 +558,259 @@ def test_plain_backward_matches_jax_grad_on_a_column_slice():
         _close(g, wg, GRAD_RTOL, GRAD_ATOL_REL, f"column slice: {name}")
 
 
+# --- transfer functions of any size --------------------------------------------
+
+def _many_points(n: int, seed: int = 11, top: float = 0.2):
+    """A seeded transfer function of ``n`` points as a TF editor makes
+    them over the data's range (the test volume's values lie in [0,
+    0.196]): sorted positions from 0 to ``top``, colours in [0, 1],
+    opacities up to 0.9."""
+    rs = np.random.default_rng(seed)
+    pos = np.sort(rs.uniform(0.0, top, n)).astype(np.float32)
+    pos[0], pos[-1] = 0.0, top
+    cols = rs.uniform(0.0, 1.0, (n, 4)).astype(np.float32)
+    cols[:, 3] *= 0.9
+    return pos, cols
+
+
+@pytest.mark.parametrize("points", [17, 64])
+def test_plain_scan_and_backward_match_the_reference_at_many_tf_points(
+        points):
+    """The plain loop's intermediate image against the reference's
+    ``_scan_planes``, and its backward's plain version against
+    ``jax.grad`` of it, for a transfer function of ``points`` points: the
+    semantics that the kernels take on."""
+    import jax
+    import jax.numpy as jnp
+
+    from cpm_tpu.core import camera as jcamera
+    from cpm_tpu.core.types import TransferFunction as JTF
+    from cpm_tpu.ops import sweep_render as jsw
+
+    pos, cols = _many_points(points)
+    vol_p, light_p, tf, sched, u, v = _scan_inputs(pos=pos, cols=cols)
+    c = tsw.scan_constants(vol_p, light_p, sched, u, v)
+    out = tsw._scan_planes_torch(vol_p, light_p, tf, c, u, v, 0.05)
+    w = np.random.default_rng(6).uniform(0.5, 1.5, out.shape).astype(
+        np.float32)
+    got = tsw._scan_planes_grad_torch(vol_p, light_p, tf, c, u, v, 0.05, out,
+                                      torch.from_numpy(w))
+
+    jcam = jcamera.Camera.create(eye=EYE, center=CENTER)
+    axis, sign = jsw.principal_axis(jcam)
+    js = jsw._plane_schedule(jcam, axis, sign, SCAN["n_planes"],
+                             SCAN["width"], SCAN["height"])
+    ju, jv = jsw.base_grid(js, SCAN["inter_u"], SCAN["inter_v"])
+
+    def inter(vp, lp, p, cl):
+        return jsw._scan_planes(vp, lp, JTF.from_points(p, cl), js, ju, jv,
+                                0.05)
+
+    args = [jnp.asarray(a) for a in (vol_p.numpy(), light_p.numpy(), pos,
+                                     cols)]
+    want_out = np.asarray(inter(*args))
+    np.testing.assert_allclose(out.numpy(), want_out, rtol=VALUE_RTOL,
+                               atol=1e-6)
+    assert want_out[..., 3].max() > 0.05
+    want = jax.grad(lambda *a: jnp.sum(inter(*a) * w),
+                    argnums=(0, 1, 2, 3))(*args)
+    for name, g, wg in zip(("volume", "light volume", "tf positions",
+                            "tf colours"), got, want):
+        _close(g, wg, GRAD_RTOL, GRAD_ATOL_REL, f"{points} points: {name}")
+    # Most segments are sampled: the gradient reaches most colour rows.
+    assert (np.abs(np.asarray(want[3])).sum(1) > 0).sum() > points // 2
+
+
+def _kernel_tf_sample(pos: torch.Tensor, cols: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+    """The kernels' transfer-function sample (``tf_sample`` in
+    csrc/sweep_scan.cu), in torch: the last segment with x >= pos[s] by
+    compares alone (-1 for none), then that one segment's width,
+    parameter, clip and lerp; the first colour for none."""
+    n = pos.shape[0]
+    sel = torch.full(x.shape, -1, dtype=torch.int64)
+    for s in range(n - 1):
+        sel = torch.where(x >= pos[s], s, sel)
+    s0 = torch.clamp(sel, min=0)
+    s1 = torch.clamp(s0 + 1, max=n - 1)
+    t = torch.clamp((x - pos[s0]) / torch.clamp(pos[s1] - pos[s0], min=1e-12),
+                    0.0, 1.0)
+    seg = cols[s0] + (cols[s1] - cols[s0]) * t[..., None]
+    return torch.where((sel < 0)[..., None], cols[0], seg)
+
+
+TF_RULE_CASES = {
+    "1 point": (np.array([0.4], np.float32), TF_COLS[:1]),
+    "2 points": (TF_POS[[0, 3]], TF_COLS[[0, 3]]),
+    "17 points": _many_points(17),
+    "64 points": _many_points(64),
+    "256 points": _many_points(256),
+    "unsorted, tied": (np.array([0.3, 0.1, 0.1, 0.7, 0.5, 0.5, 0.9, 1.0, 0.0],
+                                np.float32), _many_points(9)[1]),
+}
+
+
+@pytest.mark.parametrize("case", list(TF_RULE_CASES))
+def test_the_kernels_tf_rule_equals_the_where_chain(case):
+    """One surviving segment gives TransferFunction.sample's bits: seeded
+    values around the points' range, every point itself, NaN and both
+    infinities."""
+    pos, cols = TF_RULE_CASES[case]
+    tf = ttypes.TransferFunction.from_points(pos, cols, device="cpu")
+    span = max(float(pos.max() - pos.min()), 1.0)
+    x = np.random.default_rng(9).uniform(
+        pos.min() - 0.2 * span, pos.max() + 0.2 * span, 4096).astype(
+        np.float32)
+    x = torch.from_numpy(np.concatenate([x, pos, [np.nan, np.inf, -np.inf]])
+                         .astype(np.float32))
+    got = _kernel_tf_sample(tf.positions, tf.colors, x)
+    want = tf.sample(x)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+# --- the forward's plane pre-pass ------------------------------------------
+
+@pytest.mark.parametrize("eye", [EYE, (2.0, 0.4, 0.5), (0.5, 0.55, 0.3)])
+def test_prepared_planes_match_the_references_slabs_and_hat_rows(eye):
+    """The pre-pass's plain version against what the reference's
+    ``_scan_planes`` makes per plane (sweep_render.py:224-251): the slab
+    lerps of the volume and light volume, the hat matrices (rebuilt from
+    the two taps and weights of each row) and the masks; the light's pad
+    is zero and the counts are the constants'."""
+    import jax.numpy as jnp
+
+    from cpm_tpu.core import camera as jcamera
+    from cpm_tpu.ops import sweep_render as jsw
+
+    vol_p, light_p, tf, sched, u, v = _scan_inputs(eye=eye)
+    vol_p, light_p = _with_inf(vol_p, 5, 7), _with_inf(light_p, 3, 8)
+    c = tsw.scan_constants(vol_p, light_p, sched, u, v)
+    planes = ss._prepare_planes_torch(vol_p, light_p, c, u, v, 0,
+                                      SCAN["n_planes"])
+    jcam = jcamera.Camera.create(eye=eye, center=CENTER)
+    axis, sign = jsw.principal_axis(jcam)
+    js = jsw._plane_schedule(jcam, axis, sign, SCAN["n_planes"],
+                             SCAN["width"], SCAN["height"])
+    ju, jv = jsw.base_grid(js, SCAN["inter_u"], SCAN["inter_v"])
+    nc, nb = vol_p.shape[1:]
+    nc2, nb2 = light_p.shape[1:3]
+
+    def slab(data, za_k):
+        na = data.shape[0]
+        zf = jnp.clip(za_k * na - 0.5, 0.0, na - 1.0)
+        k0 = jnp.floor(zf).astype(jnp.int32)
+        fz = zf - k0.astype(jnp.float32)
+        return np.asarray((1.0 - fz) * data[k0]
+                          + fz * data[jnp.minimum(k0 + 1, na - 1)])
+
+    def dense(idx, w, n, stride):
+        m = np.zeros((idx.shape[0], n), np.float32)
+        rows = np.arange(idx.shape[0])
+        np.add.at(m, (rows, idx[:, 0] // stride), w[:, 0])
+        np.add.at(m, (rows, idx[:, 1] // stride), w[:, 1])
+        return m
+
+    jvol, jlight = jnp.asarray(vol_p.numpy()), jnp.asarray(light_p.numpy())
+    ci, cw = planes.col_i.numpy(), planes.col_w.numpy()
+    ri, rw = planes.row_i.numpy(), planes.row_w.numpy()
+    for k in range(SCAN["n_planes"]):
+        za_k, w_k = js.za[k], js.w_planes[k]
+        for got, want in ((planes.vol[k], slab(jvol, za_k)),
+                          (planes.light[k, ..., :3], slab(jlight, za_k))):
+            got = got.numpy()
+            np.testing.assert_array_equal(np.isfinite(got),
+                                          np.isfinite(want))
+            fin = np.isfinite(want)
+            np.testing.assert_allclose(got[fin], want[fin], rtol=1e-6,
+                                       atol=1e-7)
+        b_k, c_k = js.o_b + w_k * (ju - js.o_b), js.o_c + w_k * (jv - js.o_c)
+        for got, want in (
+                (dense(ci[k, :, :2], cw[k, :, :2], nb, 1), jsw._hat_matrix(
+                    b_k, nb)),
+                (dense(ci[k, :, 2:], cw[k, :, 2:], nb2, 1),
+                 jsw._hat_matrix(b_k, nb2)),
+                (dense(ri[k, :, :2], rw[k, :, :2], nc, nb),
+                 jsw._hat_matrix(c_k, nc)),
+                (dense(ri[k, :, 2:], rw[k, :, 2:], nc2, nb2),
+                 jsw._hat_matrix(c_k, nc2))):
+            np.testing.assert_allclose(got, np.asarray(want), atol=1e-6)
+        np.testing.assert_array_equal(planes.col_m[k].numpy(), np.asarray(
+            ((b_k >= 0.0) & (b_k <= 1.0)).astype(jnp.float32)))
+        np.testing.assert_array_equal(planes.row_m[k].numpy(), np.asarray(
+            ((c_k >= 0.0) & (c_k <= 1.0)).astype(jnp.float32)
+            * js.valid[k].astype(jnp.float32)))
+    assert not bool(planes.light[..., 3].any())
+    np.testing.assert_array_equal(planes.counts[:, 0].numpy(),
+                                  c.nonfinite.numpy())
+    np.testing.assert_array_equal(planes.counts[:, 1:].numpy(),
+                                  c.lnonfinite.numpy())
+    assert int(planes.counts.sum()) > 0
+
+
+def test_prepare_planes_on_cpu_is_the_plain_version_and_launches_nothing():
+    """The pre-pass's plain version over a part of the planes is that part
+    of the whole; the forward, the pre-pass kernel's one launcher, refuses
+    CPU tensors and launches nothing."""
+    vol_p, light_p, tf, sched, u, v = _scan_inputs()
+    c = tsw.scan_constants(vol_p, light_p, sched, u, v)
+    before = ss.sweep_planes.launches
+    part = ss._prepare_planes_torch(vol_p, light_p, c, u, v, 5, 12)
+    whole = ss._prepare_planes_torch(vol_p, light_p, c, u, v, 0, 32)
+    for got, want in zip(part, whole):
+        assert torch.equal(got, want[5:12])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ss._forward(vol_p, light_p, tf.positions, tf.colors, c, u, v, 0.05)
+    assert ss.sweep_planes.launches == before
+
+
+def test_the_scratch_holds_each_field_where_the_kernels_are_pointed():
+    """One allocation holds a chunk's prepared planes: the pointers set in
+    the kernels' arguments are the views' own, each field 256 bytes from
+    the buffer's start (a card's allocation is 512-byte aligned), with the
+    shapes and types of the plain version's planes and
+    ``plane_bytes`` a plane."""
+    vol_p, light_p, tf, sched, u, v = _scan_inputs()
+    c = tsw.scan_constants(vol_p, light_p, sched, u, v)
+    args = ss._Args(nc=16, nb=16, nc2=8, nb2=8, n_u=40, n_v=36)
+    buf, fields = ss._scratch(args, 7, "cpu")
+    planes = ss._views(buf, fields)
+    want = ss._prepare_planes_torch(vol_p, light_p, c, u, v, 3, 10)
+    for name, arg, got, w in zip(ss.Planes._fields, ss._PLANE_ARGS, planes,
+                                 want):
+        assert (got.shape, got.dtype) == (w.shape, w.dtype), name
+        assert getattr(args, arg) == got.data_ptr(), name
+        assert (got.data_ptr() - buf.data_ptr()) % 256 == 0, name
+    assert sum(t.numel() * 4 for t in planes) == 7 * ss.plane_bytes(
+        16, 16, 8, 8, 40, 36) <= buf.numel()
+
+
+@pytest.mark.parametrize("n_planes,per_plane,budget,want", [
+    (128, 188_448, ss.PLANE_BUDGET, [(0, 128)]),
+    (7, 10, 25, [(0, 2), (2, 4), (4, 6), (6, 7)]),
+    (6, 10, 30, [(0, 3), (3, 6)]),
+    (1, 10 ** 9, 2 ** 20, [(0, 1)]),
+    (3, 10 ** 9, 2 ** 20, [(0, 1), (1, 2), (2, 3)]),
+    (0, 10, 100, []),
+])
+def test_chunk_plan_covers_every_plane_once_in_order(n_planes, per_plane,
+                                                     budget, want):
+    plan = ss.chunk_plan(n_planes, per_plane, budget)
+    assert plan == want
+    assert [k for lo, hi in plan for k in range(lo, hi)] == list(
+        range(n_planes))
+    assert all((hi - lo) * per_plane <= budget or hi - lo == 1
+               for lo, hi in plan)
+
+
+def test_the_default_frames_planes_fit_one_chunk_in_the_l2():
+    """The default frame (128 planes, a 128^3 volume, a 65^3 light volume,
+    768^2 rays) takes one chunk of 24.1 MB, under the card's 50 MB L2."""
+    per = ss.plane_bytes(128, 128, 65, 65, 768, 768)
+    assert ss.chunk_plan(128, per, ss.PLANE_BUDGET) == [(0, 128)]
+    assert 128 * per == 24_121_344 < 50 * 10 ** 6
+
+
 # --- on the card -------------------------------------------------------------
 
 @pytest.fixture
@@ -590,3 +880,112 @@ def test_backward_kernel_matches_plain_on_the_card(card, case):
     for name, g, wg in zip(("volume", "light volume", "tf positions",
                             "tf colours"), got, want):
         _close(g, wg, CARD_GRAD_RTOL, CARD_GRAD_ATOL_REL, f"{case}: {name}")
+
+
+MANY_POINTS = (17, 64, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", MANY_POINTS)
+def test_forward_kernel_matches_plain_at_many_tf_points_on_the_card(card,
+                                                                    points):
+    vol_p, light_p, tf, sched, u, v = _scan_inputs(
+        device=card, **dict(zip(("pos", "cols"), _many_points(points))))
+    got = tsw._scan_planes(vol_p, light_p, tf, sched, u, v, 0.05)
+    want = tsw._scan_planes(vol_p, light_p, tf, sched, u, v, 0.05,
+                            method="torch")
+    _close(got, want, CARD_RTOL, CARD_ATOL_REL, f"{points} points")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", MANY_POINTS)
+def test_backward_kernel_matches_plain_at_many_tf_points_on_the_card(
+        card, points):
+    """At 256 points the first design's table (5 P floats a thread) did not
+    fit the card's shared memory and the launch was refused."""
+    vol_p, light_p, tf, sched, u, v = _scan_inputs(
+        device=card, **dict(zip(("pos", "cols"), _many_points(points))))
+    leaves = _leaves(vol_p, light_p, tf)
+    tf_g = ttypes.TransferFunction(positions=leaves[2], colors=leaves[3],
+                                   lut=None)
+    out = tsw._scan_planes(leaves[0], leaves[1], tf_g, sched, u, v, 0.05)
+    w = torch.from_numpy(np.random.default_rng(4).uniform(
+        0.5, 1.5, out.shape).astype(np.float32)).to(card)
+    before = ss.sweep_scan_backward.launches
+    got = torch.autograd.grad((out * w).sum(), leaves)
+    torch.cuda.synchronize()
+    assert ss.sweep_scan_backward.launches == before + 1
+    c = tsw.scan_constants(vol_p, light_p, sched, u, v)
+    want = tsw._scan_planes_grad_torch(vol_p, light_p, tf, c, u, v, 0.05,
+                                       out.detach(), w)
+    for name, g, wg in zip(("volume", "light volume", "tf positions",
+                            "tf colours"), got, want):
+        _close(g, wg, CARD_GRAD_RTOL, CARD_GRAD_ATOL_REL,
+               f"{points} points: {name}")
+
+
+@pytest.mark.cuda
+def test_backward_with_its_tf_table_in_device_memory_on_the_card(
+        card, monkeypatch):
+    """No shared table (as for a transfer function of over 2,457 points):
+    each run of a segment adds into the gradient with global atomics."""
+    monkeypatch.setattr(ss, "TF_SHARED_BYTES", 0)
+    test_backward_kernel_matches_plain_at_many_tf_points_on_the_card(card,
+                                                                     64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CARD_KW))
+def test_forward_in_chunks_equals_one_chunk_on_the_card(card, case,
+                                                       monkeypatch):
+    """A plane budget of 10 planes: 4 chunks (4 pre-pass and 4 march
+    launches), each ray's colour and transmittance carried through the
+    output; bit for bit the one-chunk forward."""
+    vol_p, light_p, tf, sched, u, v = _scan_inputs(device=card,
+                                                   **CARD_KW[case])
+    u = u.contiguous()
+    c = tsw.scan_constants(vol_p, light_p, sched, u, v)
+    args = (vol_p, light_p, tf.positions, tf.colors, c, u, v, 0.05)
+    one = ss.sweep_scan_forward(*args)
+    before = (ss.sweep_planes.launches, ss.sweep_scan_forward.launches)
+    per = ss.plane_bytes(*vol_p.shape[1:], *light_p.shape[1:3], u.shape[0],
+                         v.shape[0])
+    monkeypatch.setattr(ss, "PLANE_BUDGET", 10 * per)
+    chunked = ss.sweep_scan_forward(*args)
+    torch.cuda.synchronize()
+    assert (ss.sweep_planes.launches - before[0],
+            ss.sweep_scan_forward.launches - before[1]) == (4, 4)
+    assert torch.equal(chunked, one)
+    assert float(one[..., 3].max()) > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CARD_KW))
+def test_plane_prepass_kernel_equals_its_plain_version_on_the_card(
+        card, case, monkeypatch):
+    """The planes that the forward's pre-pass left in its scratch, bit for
+    bit (NaN equal) its plain version's: every plane in one chunk, and the
+    last of three chunks under a budget of 13 planes."""
+    vol_p, light_p, tf, sched, u, v = _scan_inputs(device=card,
+                                                   **CARD_KW[case])
+    vol_p, light_p = _with_inf(vol_p, 12, 2), _with_inf(light_p, 6, 3)
+    u = u.contiguous()
+    c = tsw.scan_constants(vol_p, light_p, sched, u, v)
+    per = ss.plane_bytes(*vol_p.shape[1:], *light_p.shape[1:3], u.shape[0],
+                         v.shape[0])
+    n = c.fz.shape[0]
+    assert n == 32
+    for budget, chunks, last in ((ss.PLANE_BUDGET, 1, (0, n)),
+                                 (13 * per, 3, (26, n))):
+        monkeypatch.setattr(ss, "PLANE_BUDGET", budget)
+        before = ss.sweep_planes.launches
+        _, scratch = ss._forward(vol_p, light_p, tf.positions, tf.colors, c,
+                                 u, v, 0.05)
+        torch.cuda.synchronize()
+        assert ss.sweep_planes.launches == before + chunks
+        got, span = ss._filled(scratch)
+        assert span == last
+        want = ss._prepare_planes_torch(vol_p, light_p, c, u, v, *last)
+        for name, g, w in zip(ss.Planes._fields, got, want):
+            assert torch.equal(g.nan_to_num(), w.nan_to_num()), name
+            assert torch.equal(torch.isnan(g), torch.isnan(w)), name
