@@ -61,8 +61,9 @@ no result, without them. It imports nothing but the port. In order it:
    Then the sweep kernels (``csrc/sweep_scan.cu``: the forward, a plane
    pre-pass and a march, one launch of each per sweep (per chunk of
    planes under ``sweep_scan.PLANE_BUDGET``; every driven sweep is one
-   chunk), one thread per intermediate ray; the backward, one launch per
-   gradient through a sweep), each kernel's registers and the static
+   chunk), one thread per intermediate ray; the backward, the pre-pass, a
+   gradient march and a fold, one launch of each per chunk of a gradient
+   through a sweep), each kernel's registers and the static
    instructions of its plane loop (``scripts/sass_counts.py``, where the
    toolkit has ``cuobjdump``), the planes that the forward's pre-pass left
    in its scratch against their plain version bit for bit at every scan
@@ -86,13 +87,16 @@ no result, without them. It imports nothing but the port. In order it:
    against the plain loop with its plain backward on the frame's image
    loss with the 64-point TF, within rtol 1e-3, atol 1e-5 of each
    gradient's largest component, and alone
-   against its plain version (``_scan_planes_grad_torch``), timed beside
-   its bound; render_state, the frame and the interactive frame in turns
-   (plain loop, kernels, kernels, plain loop), and the host waits of one
-   render in each form (the kernels' no more than the plain loop's). Every
-   driven path's launch counts include the sweep kernels: the pre-pass
-   and the march once per sweep render, the backward once per gradient
-   through one;
+   against its plain version (``_scan_planes_grad_torch``) at 4, 17, 64
+   and 256 TF points, its fold bit for bit against the fold's plain
+   version (``_fold_plane_grads_torch``) on the gradient march's own
+   planes, the pre-pass, gradient march and fold timed apart and together
+   beside their bounds; render_state, the frame and the interactive frame
+   in turns (plain loop, kernels, kernels, plain loop), and the host
+   waits of one render in each form (the kernels' no more than the plain
+   loop's). Every driven path's launch counts include the sweep kernels:
+   the pre-pass and the march once per sweep render, the pre-pass, the
+   gradient march and the fold once per gradient through one;
 6. drives the correlated update at the default frame, after a
    transfer-function edit (every opacity x 1.5), through ``step()`` with
    the launch counts set to 0 before and read after:
@@ -769,15 +773,16 @@ TRACE = wt.trace_woodcock_cuda  # the trace kernel's wrapper
 # The sweep kernels' wrappers: the forward's plane pre-pass and its march
 # once per sweep (two for an eye inside the volume's slab range; one of
 # each per chunk of planes, and every driven sweep is one chunk), the
-# backward once per gradient.
+# backward's pre-pass, gradient march and fold once per gradient.
 SWEEP_PREP = ss.sweep_planes
 SWEEP_FWD, SWEEP_BWD = ss.sweep_scan_forward, ss.sweep_scan_backward
+SWEEP_FOLD = ss.sweep_fold
 
 
 def reset_counts() -> None:
     torch.cuda.synchronize()
     for fn in (*COUNTED.values(), sp.splat_product_grad_cuda, TRACE,
-               SWEEP_PREP, SWEEP_FWD, SWEEP_BWD):
+               SWEEP_PREP, SWEEP_FWD, SWEEP_BWD, SWEEP_FOLD):
         fn.launches = 0
 
 
@@ -786,7 +791,8 @@ def read_counts() -> dict:
             "trace_woodcock_cuda": TRACE.launches,
             "sweep_planes": SWEEP_PREP.launches,
             "sweep_scan_forward": SWEEP_FWD.launches,
-            "sweep_scan_backward": SWEEP_BWD.launches}
+            "sweep_scan_backward": SWEEP_BWD.launches,
+            "sweep_fold": SWEEP_FOLD.launches}
 
 
 def expect_launches(what: str, launches: dict, designs: list,
@@ -796,15 +802,17 @@ def expect_launches(what: str, launches: dict, designs: list,
     ``designs`` ("direct" or "tiled", with one binning per tiled launch)
     and no more, the trace kernel ``traces`` times (one trace per splat
     unless given), the sweep's forward kernels (the plane pre-pass and the
-    march) ``sweeps`` times and its backward ``sweep_grads`` times: every
-    driven path traces and renders through the kernels."""
+    march) ``sweeps`` times and its backward's (the pre-pass, the gradient
+    march and the fold) ``sweep_grads`` times: every driven path traces
+    and renders through the kernels."""
     want = {"splat_product_direct": designs.count("direct"),
             "splat_product_tiled": designs.count("tiled"),
             "bin_deposits": designs.count("tiled"),
             "trace_woodcock_cuda": len(designs) if traces is None else traces,
-            "sweep_planes": sweeps,
+            "sweep_planes": sweeps + sweep_grads,
             "sweep_scan_forward": sweeps,
-            "sweep_scan_backward": sweep_grads}
+            "sweep_scan_backward": sweep_grads,
+            "sweep_fold": sweep_grads}
     if launches != want:
         raise AssertionError(f"{what}: expected the launches {want}, "
                              f"counted {launches}")
@@ -1238,11 +1246,17 @@ def trace_row(phase: dict, main_launches: int, extra: dict) -> dict:
 SWEEP_RTOL, SWEEP_ATOL_REL = 1e-4, 1e-6
 SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL = 1e-3, 1e-5
 SWEEP_TURNS = ("torch", "cuda", "cuda", "torch")
-RECORDS["sweep grad"] = {"sweep_scan_grad_kernel": 1}
-# Transfer functions of any size: the forward is timed at these point
-# counts at the default frame (and at the scene's own 4), each held
-# against the plain loop; the 64-point one also goes through a gradient.
+RECORDS["sweep grad"] = {"sweep_planes_kernel": 1,
+                         "sweep_scan_grad_kernel": 1,
+                         "sweep_fold_kernel": 1}
+# Transfer functions of any size: the forward and the backward are timed
+# at these point counts at the default frame (and at the scene's own 4),
+# each held against its plain version; the 64-point one also goes through
+# a gradient.
 TF_POINTS = (17, 64, 256)
+# Float operations of the fold a gradient-plane texel and channel: its two
+# weights' products and sums.
+FOLD_OPS_PER_TEXEL_CHANNEL = 4
 # Float operations of the plane pre-pass: a lerped texel 3 a channel; a
 # column or row about 35 (its coordinate 3, two hat rows of 14, the mask).
 PREP_OPS_PER_TEXEL_CHANNEL = 3
@@ -1290,11 +1304,14 @@ def sweep_bound(vol_p, light_p, n_v: int, n_u: int, n_planes: int,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def prepass_bound(vol_p, light_p, c, n_u: int, n_v: int) -> dict:
+def prepass_bound(vol_p, light_p, c, n_u: int, n_v: int,
+                  backward: bool = False) -> dict:
     """The least time of the plane pre-pass of one scan, the larger of: the
     bytes it must move (the slabs its planes lerp and the rays'
     coordinates read once, 48 B of constants a plane, its prepared planes
-    written once, ``sweep_scan.plane_bytes`` each) at HBM_BYTES_PER_S, and
+    written once, ``sweep_scan.plane_bytes`` each, and in a ``backward``
+    the gradient planes it zeroes, 4 B a texel of the volume's and 12 B a
+    texel of the light's, whose pad nothing reads) at HBM_BYTES_PER_S, and
     its operations (PREP_OPS_PER_TEXEL_CHANNEL a lerped texel and channel,
     PREP_OPS_PER_RAY_LINE a column or row) at FP32_FLOP_PER_S."""
     nc, nb = vol_p.shape[1:]
@@ -1302,13 +1319,41 @@ def prepass_bound(vol_p, light_p, c, n_u: int, n_v: int) -> dict:
     planes = c.fz.shape[0]
     slabs = int(torch.unique(torch.cat([c.k0, c.k1])).numel())
     lslabs = int(torch.unique(torch.cat([c.lk0, c.lk1])).numel())
-    written = planes * ss.plane_bytes(nc, nb, nc2, nb2, n_u, n_v)
+    written = planes * (ss.plane_bytes(nc, nb, nc2, nb2, n_u, n_v)
+                        + (4 * nc * nb + 12 * nc2 * nb2 if backward else 0))
     nbytes = (4 * (slabs * nc * nb + lslabs * nc2 * nb2 * 3 + n_u + n_v)
               + 48 * planes + written)
     ops = planes * (PREP_OPS_PER_TEXEL_CHANNEL * (nc * nb + 3 * nc2 * nb2)
                     + PREP_OPS_PER_RAY_LINE * (n_u + n_v))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     return {"bytes": nbytes, "operations": ops, "prepared_bytes": written,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def fold_bound(vol_p, light_p, c, plan) -> dict:
+    """The least time of the folds of one scan's gradient planes, one a
+    chunk of ``plan`` ([lo, hi) planes), the larger of: the bytes they must
+    move (the gradient planes read once, 4 B a texel of the volume's and
+    12 B a texel of the light's, and 20 B of constants a plane; each
+    chunk's slabs of the gradients that its planes' lerps touch written
+    once, and read where an earlier chunk touched them too) at
+    HBM_BYTES_PER_S, and their operations (FOLD_OPS_PER_TEXEL_CHANNEL a
+    gradient-plane texel and channel) at FP32_FLOP_PER_S."""
+    nc, nb = vol_p.shape[1:]
+    nc2, nb2 = light_p.shape[1:3]
+    planes = c.fz.shape[0]
+    nbytes = planes * (4 * nc * nb + 12 * nc2 * nb2 + 2 * 20)
+    for ks, ks2, per in ((c.k0, c.k1, 4 * nc * nb),
+                         (c.lk0, c.lk1, 12 * nc2 * nb2)):
+        seen = set()
+        for lo, hi in plan:
+            touched = set(torch.cat([ks[lo:hi], ks2[lo:hi]]).tolist())
+            nbytes += per * (len(touched) + len(touched & seen))
+            seen |= touched
+    ops = planes * FOLD_OPS_PER_TEXEL_CHANNEL * (nc * nb + 3 * nc2 * nb2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return {"bytes": nbytes, "operations": ops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1559,24 +1604,28 @@ def scanned_plainly():
 def check_sweep_grad(what: str, volume, tf, light_volume, camera, rc,
                      weight, tag, *, timed: bool = False,
                      plain_backward: bool = False) -> dict:
-    """The backward kernel (through ``SweepScan``) against autograd through
+    """The backward kernels (through ``SweepScan``) against autograd through
     the plain loop (``plain_backward``: through PlainScan, the plain loop
     with the backward's plain version), for the loss sum(image x
     ``weight``): each gradient within SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL
-    x its largest component, one backward launch per sweep. With
-    ``timed``: the kernel alone
-    against its plain version (``_scan_planes_grad_torch``) on the image's
-    own cotangent of the intermediate, its device time beside the bound,
-    and both whole gradients timed."""
+    x its largest component; the gradient of one sweep launches the
+    forward's pre-pass and march and the backward's pre-pass, gradient
+    march and fold once each. With ``timed``: the kernels alone
+    (time_sweep_grad) and both whole gradients timed."""
     args = (volume, tf, light_volume, camera, rc, weight)
-    before = SWEEP_BWD.launches
+    before = read_counts()
     got = sweep_grads(*args, "cuda")
     torch.cuda.synchronize()
-    launches = SWEEP_BWD.launches - before
+    made = {k: n - before[k] for k, n in read_counts().items()
+            if k.startswith("sweep_")}
     with scanned_plainly() if plain_backward else contextlib.nullcontext():
         want = sweep_grads(*args, "torch")
-    if SWEEP_BWD.launches - before != launches or launches != 1:
-        raise AssertionError(f"{what}: {launches} backward launches")
+    after = {k: n - before[k] for k, n in read_counts().items()
+             if k.startswith("sweep_")}
+    if after != made or made != {"sweep_planes": 2, "sweep_scan_forward": 1,
+                                 "sweep_scan_backward": 1, "sweep_fold": 1}:
+        raise AssertionError(f"{what}: sweep launches {made} for one "
+                             f"gradient, {after} with the plain one")
     against = ("the plain loop with its plain backward" if plain_backward
                else "autograd through the plain loop")
     res = {name: sweep_close(g, w, f"sweep backward (SweepScan) vs "
@@ -1584,11 +1633,139 @@ def check_sweep_grad(what: str, volume, tf, light_volume, camera, rc,
                              SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL)
            for name, g, w in zip(GRAD_NAMES, got, want)}
     res["max_abs_err"] = max(res[n]["max_abs_err"] for n in GRAD_NAMES)
+    res["launches"] = made
     if not timed:
         return res
+    res.update(time_sweep_grad(what, volume, tf, light_volume, camera, rc,
+                               weight, tag, time_plain=True))
+    whole = {m: cuda_ms(lambda m=m: sweep_grads(*args, m), reps=1)
+             for m in ("cuda", "torch")}
+    print(f"sweep gradient, {what}: the whole gradient (render and "
+          f"backward) through the kernels {whole['cuda']:.3f} ms, through "
+          f"autograd of the plain loop {whole['torch']:.3f} ms ({tag})")
+    res["whole_gradient_ms"] = whole
+    return res
+
+
+def _cpu_constants(c):
+    """A scan's constants on the CPU."""
+    return c._replace(**{f: t.cpu() for f, t in c._asdict().items()
+                         if isinstance(t, torch.Tensor)})
+
+
+def _tf_piece(tf, x):
+    """The piece of the transfer function's subgradient at each sample
+    ``x``, as ``sweep_render._tf_sample_grad`` takes it: (the segment, the
+    last point at or below x, -1 for none; whether its parameter t sits on
+    0 or 1, where the clip halves the gradient)."""
+    pos = tf.positions
+    seg = torch.searchsorted(pos[:-1].contiguous(), x, right=True) - 1
+    s = seg.clamp(min=0)
+    t_raw = (x - pos[s]) / torch.clamp(pos[s + 1] - pos[s], min=1e-12)
+    return seg, (seg >= 0) & ((t_raw == 0.0) | (t_raw == 1.0))
+
+
+def tf_kinks(vol_p, tf, c, u, v, planes) -> dict:
+    """The samples of a scan at which the transfer function's subgradient
+    takes another piece under the kernels' sampling (the taps of
+    ``planes``, every plane prepared) than under the plain loop's
+    (hat-matrix products): another
+    segment, or t on 0 or 1 (half the slope) in one form only. Such a
+    sample's dL/dx differs, and that goes to the volume's texels under its
+    taps and to the points of its segments; its value, so its colour and
+    opacity, agrees to rounding, so the light volume's and the colours'
+    gradients do not move. Returns {"samples": the count, "volume": bool
+    like vol_p, "tf positions": bool (P,)}."""
+    nc, nb = vol_p.shape[1:]
+    n_points = tf.positions.shape[0]
+    kinks = 0
+    vol = torch.zeros(vol_p.shape, dtype=torch.bool, device=vol_p.device)
+    pos = torch.zeros(n_points, dtype=torch.bool, device=vol_p.device)
+    for k in range(c.fz.shape[0]):
+        taps = sweep_render._fetch_plane_torch(planes, k)[0]
+        b_k = c.o_b + c.w_planes[k] * (u - c.o_b)
+        c_k = c.o_c + c.w_planes[k] * (v - c.o_c)
+        r_b = sweep_render._hat_matrix(b_k, nb)
+        r_c = sweep_render._hat_matrix(c_k, nc)
+        prod = (r_c @ planes.vol[k]) @ r_b.T
+        (seg_k, tie_k), (seg_p, tie_p) = _tf_piece(tf, taps), \
+            _tf_piece(tf, prod)
+        kinked = (seg_k != seg_p) | (tie_k != tie_p)
+        if not bool(kinked.any()):
+            continue
+        kinks += int(kinked.sum())
+        under = (r_c.double().T @ kinked.double() @ r_b.double()) > 0.0
+        for slab, w in ((c.k0[k], 1.0 - c.fz[k]), (c.k1[k], c.fz[k])):
+            if float(w) != 0.0:
+                vol[slab] |= under
+        ends = torch.cat([seg_k[kinked], seg_p[kinked]])
+        pos[torch.cat([ends, ends + 1]).clamp(0, n_points - 1)] = True
+    return {"samples": kinks, "volume": vol, "tf positions": pos}
+
+
+def held_off_kinks(got, want, under, what: str, kinks: int,
+                   held: bool = True) -> dict:
+    """Assert a backward's gradient within SWEEP_GRAD_RTOL and
+    SWEEP_GRAD_ATOL_REL x the plain version's largest |component| at every
+    element outside ``under`` (the elements that the samples of
+    ``tf_kinks`` reach, None for none), NaN where it has NaN; prints and
+    returns the error there and the elements under them that lie outside
+    the tolerance. Not ``held``: printed only."""
+    finite = torch.isfinite(want)
+    scale = float(want[finite].abs().max()) if bool(finite.any()) else 0.0
+    close = torch.isclose(got, want, rtol=SWEEP_GRAD_RTOL,
+                          atol=SWEEP_GRAD_ATOL_REL * scale, equal_nan=True)
+    under = torch.zeros_like(close) if under is None else under
+    both = finite & torch.isfinite(got)
+    diff = (got - want).abs()
+    err = float(diff[both & ~under].max()) if bool((both & ~under).any()) \
+        else 0.0
+    res = {"max_abs_err": err, "max_abs_plain": scale,
+           "under_kinks": int(under.sum()),
+           "outside_under_kinks": int((~close & under).sum()),
+           "outside_elsewhere": int((~close & ~under).sum())}
+    print(f"{what}: max_abs_err {err:.3e} away from the {kinks} samples at "
+          f"another piece of the TF's subgradient (max |plain| {scale:.3e}; "
+          f"tolerance rtol {SWEEP_GRAD_RTOL:g}, atol {SWEEP_GRAD_ATOL_REL:g} "
+          f"of that); {res['outside_under_kinks']} of the "
+          f"{res['under_kinks']} elements those samples reach lie outside "
+          f"it, {res['outside_elsewhere']} of the rest"
+          + ("" if held else " (printed: a sample adds g (x - p) / w^2 to "
+             "its points', so its rounding of x counts g / w^2 times, w its "
+             "segment's width)"))
+    if held and res["outside_elsewhere"]:
+        raise AssertionError(f"{what}: {res['outside_elsewhere']} elements "
+                             "that no sample at another piece of the TF's "
+                             "subgradient reaches lie outside the tolerance")
+    return res
+
+
+def time_sweep_grad(what: str, volume, tf, light_volume, camera, rc, weight,
+                    tag, time_plain: bool = False) -> dict:
+    """The backward kernels alone on the render's first sweep, for the
+    image's own cotangent of the intermediate: all four gradients within
+    the backward's tolerance of the plain version that runs as the kernels
+    do (``_scan_planes_grad_chunked_torch``: the prepared planes, the
+    kernels' taps, their row scatter and fold) and of the plain loop on
+    the kernels' samples (``_scan_planes_grad_torch`` with the prepared
+    planes: one pass, the hat matrices' scatter); and of the plain loop
+    itself (samples from hat-matrix products): with ``time_plain`` every
+    element, else every element of the volume's, the light volume's and
+    the colours' gradients that no sample of ``tf_kinks`` reaches (where a
+    sample lies on a TF point, a last bit picks the segment whose slope its
+    gradient takes, or whether the clip halves it), the positions' printed
+    (a sample adds g (x - p) / w^2 to them, so its rounding of x counts
+    g / w^2 times, w its segment's width); the fold's gradients of the
+    volume and the light volume bit for bit its plain version's
+    (``_fold_plane_grads_torch``, on the CPU) on the gradient march's own
+    planes (every driven sweep is one chunk); the device time of the
+    pre-pass, the gradient march and the fold (``torch.profiler``) apart
+    and together, each beside its bound; the call's time, and with
+    ``time_plain`` the plain versions'."""
     axis, vol_p, light_p, scans = sweep_render.sweep_plan(
         volume, light_volume, camera, rc)
     sched, u, v = scans[0]
+    u = u.contiguous()
     amb = rc.ambient
     c = sweep_render.scan_constants(vol_p, light_p, sched, u, v)
     inter = sweep_render._scan_planes(vol_p, light_p, tf, sched, u, v, amb,
@@ -1596,42 +1773,114 @@ def check_sweep_grad(what: str, volume, tf, light_volume, camera, rc,
     img = sweep_render._warp(inter, sched, axis, rc.width, rc.height)
     g_inter, = torch.autograd.grad((img.double() * weight).sum(), inter)
     inter = inter.detach()
+    pos, cols = tf.positions.contiguous(), tf.colors.contiguous()
+    kargs = (vol_p, light_p, pos, cols, c, u, v, amb, inter, g_inter)
+    points = pos.shape[0]
 
     def kernel():
-        return ss.sweep_scan_backward(vol_p, light_p, tf.positions,
-                                      tf.colors, c, u, v, amb, inter,
-                                      g_inter)
+        return ss.sweep_scan_backward(*kargs)
 
     def plain():
         return sweep_render._scan_planes_grad_torch(
             vol_p, light_p, tf, c, u, v, amb, inter, g_inter)
 
-    bare = {name: sweep_close(g, w, f"backward kernel vs "
-                              f"_scan_planes_grad_torch, {what}: {name}",
-                              SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL)
-            for name, g, w in zip(GRAD_NAMES, kernel(), plain())}
-    dev_ms = device_ms("sweep grad", kernel, reps=5)
-    if dev_ms == 0.0:
+    grads, scratch = ss._backward(*kargs)
+    bare = {name: sweep_close(g, w, f"backward kernels vs "
+                              f"_scan_planes_grad_chunked_torch, {what}, "
+                              f"{points} TF points: {name}", SWEEP_GRAD_RTOL,
+                              SWEEP_GRAD_ATOL_REL)
+            for name, g, w in zip(GRAD_NAMES, grads,
+                                  sweep_render._scan_planes_grad_chunked_torch(
+                                      vol_p, light_p, tf, c, u, v, amb, inter,
+                                      g_inter))}
+    prepared = ss._prepare_planes_torch(vol_p, light_p, c, u, v, 0,
+                                        c.fz.shape[0])
+    by_taps = {name: sweep_close(g, w, f"backward kernels vs "
+                                 f"_scan_planes_grad_torch on the kernels' "
+                                 f"samples, {what}, {points} TF points: "
+                                 f"{name}", SWEEP_GRAD_RTOL,
+                                 SWEEP_GRAD_ATOL_REL)
+               for name, g, w in zip(GRAD_NAMES, grads,
+                                     sweep_render._scan_planes_grad_torch(
+                                         vol_p, light_p, tf, c, u, v, amb,
+                                         inter, g_inter, planes=prepared))}
+    kinked = None if time_plain else tf_kinks(vol_p, tf, c, u, v, prepared)
+    by_products = {} if time_plain else {"kinked_samples": kinked["samples"]}
+    for name, g, w in zip(GRAD_NAMES, grads, plain()):
+        against = (f"backward kernels vs _scan_planes_grad_torch, {what}, "
+                   f"{points} TF points: {name}")
+        by_products[name] = sweep_close(
+            g, w, against, SWEEP_GRAD_RTOL, SWEEP_GRAD_ATOL_REL) \
+            if time_plain else held_off_kinks(
+                g, w, kinked.get(name), against, kinked["samples"],
+                held=name != "tf positions")
+    del prepared
+    g_p_vol, g_p_light, (lo, hi) = ss._grad_planes(scratch)
+    if (lo, hi) != (0, c.fz.shape[0]):
+        raise AssertionError(f"{what}: the backward took more than one "
+                             "chunk")
+    folded = sweep_render._fold_plane_grads_torch(
+        torch.zeros_like(vol_p, device="cpu"),
+        torch.zeros_like(light_p, device="cpu"), g_p_vol.cpu(),
+        g_p_light.cpu(), _cpu_constants(c), lo, hi)
+    fold_same = all(bool(torch.equal(g.cpu(), w))
+                    for g, w in zip(grads[:2], folded))
+    fold_err = max(float((g.cpu().double() - w.double()).abs().max())
+                   for g, w in zip(grads[:2], folded))
+    print(f"fold kernel vs _fold_plane_grads_torch on the gradient march's "
+          f"own planes {lo}-{hi}, {what}, {points} TF points: the volume's "
+          f"and the light volume's gradients equal bit for bit {fold_same} "
+          f"(max_abs_err {fold_err:.3e})")
+    if not fold_same:
+        raise AssertionError(f"{what}: the fold kernel differs from its "
+                             "plain version")
+    del grads, scratch
+
+    per = device_ms("sweep grad", kernel, reps=5, by_name=True)
+    prep_ms = per["sweep_planes_kernel"]
+    march_ms = per["sweep_scan_grad_kernel"]
+    fold_ms = per["sweep_fold_kernel"]
+    dev_ms = prep_ms + march_ms + fold_ms
+    if min(prep_ms, march_ms, fold_ms) == 0.0:
         raise AssertionError("torch.profiler showed no device time")
     call = cuda_ms(kernel, reps=5)
-    plain_ms = cuda_ms(plain, reps=1, warmup=0)
-    whole = {m: cuda_ms(lambda m=m: sweep_grads(*args, m), reps=1)
-             for m in ("cuda", "torch")}
     bound = sweep_bound(vol_p, light_p, v.shape[0], u.shape[0],
-                        sched.za.shape[0], tf.positions.shape[0],
-                        backward=True)
-    print(f"sweep backward, {what}: kernel device time {dev_ms:.4f} ms, "
-          f"call {call:.3f} ms, plain version {plain_ms:.3f} ms; bound "
+                        sched.za.shape[0], points, backward=True)
+    prep = prepass_bound(vol_p, light_p, c, u.shape[0], v.shape[0],
+                         backward=True)
+    fold = fold_bound(vol_p, light_p, c, [(lo, hi)])
+    plains = {}
+    if time_plain:
+        plains["plain_ms"] = cuda_ms(plain, reps=1, warmup=0)
+        g_p_vol, g_p_light = g_p_vol.clone(), g_p_light.clone()
+        plains["fold_plain_ms"] = cuda_ms(
+            lambda: sweep_render._fold_plane_grads_torch(
+                torch.zeros_like(vol_p), torch.zeros_like(light_p), g_p_vol,
+                g_p_light, c, lo, hi), reps=3)
+    print(f"sweep backward, {what}, {points} TF points: device time "
+          f"{dev_ms:.4f} ms (pre-pass {prep_ms:.4f}, gradient march "
+          f"{march_ms:.4f}, fold {fold_ms:.4f}), call {call:.3f} ms; bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
           f"{bound['samples']} samples, {bound['bytes']} B), "
-          f"{bound['bound_ms'] / dev_ms:.1%} of it; the whole gradient "
-          f"(render and backward) through the kernels {whole['cuda']:.3f} "
-          f"ms, through autograd of the plain loop {whole['torch']:.3f} ms "
-          f"({tag})")
-    res.update({"bare_vs_plain": bare, "ms": dev_ms, "call_ms": call,
-                "plain_ms": plain_ms, "whole_gradient_ms": whole, **bound,
-                "share_of_bound": bound["bound_ms"] / dev_ms})
-    return res
+          f"{bound['bound_ms'] / dev_ms:.1%} of it; pre-pass bound "
+          f"{prep['bound_ms']:.4f} ms ({prep['bound_by']}), "
+          f"{prep['bound_ms'] / prep_ms:.1%}; fold bound "
+          f"{fold['bound_ms']:.4f} ms ({fold['bound_by']}: {fold['bytes']} "
+          f"B), {fold['bound_ms'] / fold_ms:.1%}"
+          + "".join(f"; {k} {t:.3f}" for k, t in plains.items())
+          + f" ({tag})")
+    return {"bare_vs_plain": bare, "bare_vs_taps": by_taps,
+            "bare_vs_products": by_products,
+            "tf_points": points, "ms": dev_ms,
+            "prepass_ms": prep_ms, "march_ms": march_ms, "fold_ms": fold_ms,
+            "call_ms": call, **plains, **bound,
+            "share_of_bound": bound["bound_ms"] / dev_ms,
+            "bare_max_abs_err": max(r["max_abs_err"] for r in bare.values()),
+            "prepass_bound": {**prep, "share_of_bound":
+                              prep["bound_ms"] / prep_ms},
+            "fold": {"ms": fold_ms, "max_abs_err": fold_err,
+                     "bit_equal": fold_same, **fold,
+                     "share_of_bound": fold["bound_ms"] / fold_ms}}
 
 
 def small_grad_scene(dev):
@@ -1691,9 +1940,10 @@ def sweep_kernel_phase(scene, config, state, dev, tag) -> dict:
     inside (the plane pre-pass and the march apart); the frame with TFs
     of 17, 64 and 256 points, timed; ``entry``'s forward, counted; the backward against
     autograd through the plain loop on the frame's image loss (timed, and
-    the kernel alone against its plain version) and on
+    the kernels alone against their plain versions) and on
     tests/test_torch_grad.py's sweep loss, and against the plain loop with
-    its plain backward with the 64-point TF; then render_state, the frame
+    its plain backward with the 64-point TF; the backward's kernels alone
+    at 17, 64 and 256 TF points, timed; then render_state, the frame
     and a packed interactive frame in turns through the kernels and the
     plain loop, and the host waits of one render in each form."""
     t0 = time.perf_counter()
@@ -1751,6 +2001,12 @@ def sweep_kernel_phase(scene, config, state, dev, tag) -> dict:
     res["grad 64-point TF"] = check_sweep_grad(
         "the default frame's image loss, a 64-point TF", vol, tf64, lv,
         camera, rc, weight, tag, plain_backward=True)
+    # The backward at many TF points, timed and held against its plain
+    # version.
+    for n, tf_n in many.items():
+        res[f"grad timed {n}-point TF"] = time_sweep_grad(
+            "the default frame's image loss", vol, tf_n, lv, camera, rc,
+            weight, tag)
 
     # End to end, the kernels against the plain loop, in turns; the host
     # waits of one render in each form.
@@ -1791,12 +2047,14 @@ def sweep_kernel_phase(scene, config, state, dev, tag) -> dict:
 
 
 def sweep_rows(phase: dict, by_path: dict, plane_launches: int,
-               grad_launches: int, extra: dict) -> list:
+               grad_launches: int, fold_launches: int, extra: dict) -> list:
     """The ``kernels`` rows of the sweep kernels: the forward's numbers at
     the default frame (its plane pre-pass and march together, and at
     each TF size timed) and its launches on every driven path (the default
-    frame's at the top), the pre-pass's own, the backward's on the default frame's
-    image loss and its launches from one ``trajectory_gradients``."""
+    frame's at the top), the pre-pass's own, the backward's on the default
+    frame's image loss (its pre-pass, gradient march and fold together, and
+    at each TF size timed) and its launches from one
+    ``trajectory_gradients``, and the fold's own."""
     lists = {**phase["lists"], **extra}
     d, g = lists["default frame"], lists["grad default frame"]
     sass_counts = lists.pop("sass")
@@ -1848,6 +2106,7 @@ def sweep_rows(phase: dict, by_path: dict, plane_launches: int,
         "prepared_bytes": p["prepared_bytes"],
         "plane_budget_bytes": ss.PLANE_BUDGET,
         "chunks": [r["chunks"] for r in d["prepass"]]}
+    timed = [g, *(lists[f"grad timed {n}-point TF"] for n in TF_POINTS)]
     backward = {
         "name": "sweep_scan_backward", **common,
         "replaces_note": "no TPU kernel: the reference differentiates the "
@@ -1855,14 +2114,44 @@ def sweep_rows(phase: dict, by_path: dict, plane_launches: int,
         "caller": "score_grad.trajectory_gradients (default frame), and "
                   "every gradient through the sweep",
         "launches": grad_launches,
+        "launches_are": "the gradient march's; one pre-pass and one fold "
+                        "with each (rows sweep_planes, sweep_fold)",
         "max_abs_err": g["max_abs_err"],
         "max_abs_err_of": "the four gradients of the default frame's image "
                           "loss against autograd through the plain loop",
-        "ms": g["ms"], "call_ms": g["call_ms"], "plain_ms": g["plain_ms"],
+        "ms": g["ms"],
+        "ms_is": "the backward's pre-pass, gradient march and fold "
+                 "together, one chunk",
+        "prepass_ms": g["prepass_ms"], "march_ms": g["march_ms"],
+        "fold_ms": g["fold_ms"],
+        "by_tf_points": {r["tf_points"]: {k: r[k] for k in (
+            "ms", "prepass_ms", "march_ms", "fold_ms", "bound_ms",
+            "share_of_bound", "bare_max_abs_err")} for r in timed},
+        "call_ms": g["call_ms"], "plain_ms": g["plain_ms"],
         "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
         "share_of_bound": g["share_of_bound"],
         "lists": {k: v for k, v in lists.items() if k.startswith("grad ")}}
-    return [forward, prepass, backward]
+    f = g["fold"]
+    fold = {
+        "name": "sweep_fold", **common,
+        "replaces": "cpm_tpu/ops/sweep_render.py:231",
+        "replaces_note": "no TPU kernel: jax.grad's adjoint of the slab "
+                         "lerps (:229-239) inside the lax.scan of "
+                         "_scan_planes",
+        "caller": "score_grad.trajectory_gradients (default frame), after "
+                  "each chunk's gradient march",
+        "launches": fold_launches,
+        "max_abs_err": f["max_abs_err"],
+        "max_abs_err_of": "the volume's and the light volume's gradients "
+                          "against _fold_plane_grads_torch on the gradient "
+                          "march's own planes at the default frame, held "
+                          "bit for bit",
+        "ms": f["ms"], "plain_ms": g["fold_plain_ms"],
+        "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+        "share_of_bound": f["share_of_bound"], "bytes": f["bytes"],
+        "library_note": "no one library call: the fold is two weighted "
+                        "index_add_ calls a volume (its plain version)"}
+    return [forward, prepass, backward, fold]
 
 
 
@@ -3412,7 +3701,8 @@ def run_fit(tag) -> dict:
     if launches["splat_product_grad_cuda"] < fit.N_STEPS:
         raise AssertionError("the fit did not run the backward kernel")
     if min(launches["sweep_planes"], launches["sweep_scan_forward"],
-           launches["sweep_scan_backward"]) < fit.N_STEPS:
+           launches["sweep_scan_backward"],
+           launches["sweep_fold"]) < fit.N_STEPS:
         raise AssertionError("the fit did not render through the sweep "
                              "kernels, forward and backward")
     return {"steps": fit.N_STEPS, "seconds": s, "rel_err": err,
@@ -3576,7 +3866,8 @@ def gradients_default(delta_list, dev, tag) -> dict:
           + f"; one gradient launched {lin_launches}, peak "
           f"{lin_peak / 2**30:.2f} GiB ({tag})")
     if (lin_launches["sweep_planes"], lin_launches["sweep_scan_forward"],
-            lin_launches["sweep_scan_backward"]) != (1, 1, 1):
+            lin_launches["sweep_scan_backward"],
+            lin_launches["sweep_fold"]) != (2, 1, 1, 1):
         raise AssertionError("the linear loss's gradient did not render "
                              "through the sweep kernels once each way")
     del grads, xs
@@ -3608,8 +3899,9 @@ def gradients_default(delta_list, dev, tag) -> dict:
             "splat_product_direct"] < 1:
         raise AssertionError("the gradient did not run both splat kernels")
     if min(full_launches["sweep_planes"], full_launches["sweep_scan_forward"],
-           full_launches["sweep_scan_backward"]) < 1:
-        raise AssertionError("the gradient did not run both sweep kernels")
+           full_launches["sweep_scan_backward"],
+           full_launches["sweep_fold"]) < 1:
+        raise AssertionError("the gradient did not run the sweep kernels")
     del g
 
     # 4. The image MSE against a target after the TF edit: the full
@@ -4429,6 +4721,7 @@ def main() -> None:
     rows.extend(sweep_rows(
         swept, by_path, launches["sweep_planes"],
         grads["launches"]["sweep_scan_backward"],
+        grads["launches"]["sweep_fold"],
         {"config 3 guided frame": guided["sweep_check"],
          "float16 frame": half["sweep_check"],
          "float16 light volume at 4 interactions (+inf texels)": half[

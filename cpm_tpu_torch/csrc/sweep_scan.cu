@@ -2,9 +2,12 @@
 // to back over every plane, classified through the transfer function, lit
 // from the light volume and composited. The forward is two kernels a chunk
 // of planes: a plane pre-pass (sweep_planes_kernel) and a lean per-ray
-// march (sweep_scan_kernel). The backward (sweep_scan_grad_kernel) marches
-// each ray again and yields the gradients of the volume, the light volume
-// and the transfer function's positions and colours.
+// march (sweep_scan_kernel). The backward is three a chunk: the same
+// pre-pass, a gradient march (sweep_scan_grad_kernel) that marches each ray
+// again over the prepared planes into per-plane gradient planes, and a
+// fold (sweep_fold_kernel) that takes those through the slab lerps into
+// the gradients of the volume and the light volume; the gradient march
+// also yields the transfer function's positions and colours.
 //
 // Replaces cpm_tpu/ops/sweep_render.py:203-271 (_scan_planes): the
 // lax.scan over planes whose trilinear fetch of a whole plane is a lerp
@@ -51,15 +54,32 @@
 // that one segment's width, parameter, clip and lerp with the operations
 // of every segment before, so the bits are the first design's.
 //
-// The backward adds into the volume's and light volume's gradients with
-// atomics. Neighbouring rays of a warp hit the same voxels, so each
-// corner's contributions are summed first over the run of lanes that share
-// the voxel (a segmented warp reduction), and the run's first lane makes
-// the one atomic add. The transfer function's gradient (5 P entries) is
-// summed in registers over the run of planes that share a segment, and
-// each run is added into one table a block (shared memory, where 5 P
-// floats fit under TF_SHARED_BYTES) or into the gradient itself (global
-// atomics) where they do not; a block's table goes to the gradient once.
+// The backward's design. Its pre-pass is the forward's, which also zeroes
+// the chunk's gradient planes, laid out as the prepared ones (the volume's
+// (cs, nc, nb), the light's (cs, nc2, nb2, 4)); at the default frame the
+// chunk's prepared and gradient planes take 24.1 + 17.0 MB, in the L2.
+// The gradient march reads each sample through fetch_plane, the function
+// the march composites, so the recurrence's C - C<=k meets the forward's
+// bits by construction; each ray's colour and transmittance go from chunk
+// to chunk through a (V, U, 4) carry where there is more than one chunk.
+// Its scatter is one segmented warp reduction a grid and sample: a block
+// is one row, so the row taps and weights are the block's and only the
+// column differs from lane to lane; each lane's cotangent times its two
+// column weights (2 values for the volume, 6 for the light's three
+// channels) is summed over the run of lanes that share the first column
+// tap (the taps rise with the lane, so runs are long), and the run's first
+// lane adds the sums times the two row weights into the four texels of
+// the gradient plane: scalar atomics for the volume, sm_90's float4
+// atomic for the light. A clamped second tap adds nothing. The fold, one
+// thread a texel of a slab, adds the planes that read that slab, (1 - fz)
+// of each plane whose first slab it is and then fz of each whose second,
+// in the planes' order: a gather, so no atomic adds into the gradients
+// and the result is its plain version's (two index_add_ calls) bit for
+// bit. The transfer function's gradient (5 P entries) is summed in
+// registers over the run of planes that share a segment, and each run is
+// added into one table a block (shared memory, where 5 P floats fit under
+// TF_SHARED_BYTES) or into the gradient itself (global atomics) where
+// they do not; a block's table goes to the gradient once.
 //
 // Rounding follows the plain version operation for operation where it
 // can: one IEEE operation per torch operator, in the same order, built
@@ -80,19 +100,25 @@
 // count of non-finite texels comes with the constants; a plane without
 // any costs one compare.
 //
-// What bounds the forward now (counted by scripts/sass_counts.py from
+// What bounds them now (counted by scripts/sass_counts.py from
 // cuobjdump -sass of the built library, registers from -Xptxas -v; static
 // counts of the plane loop's body, both sides of each branch): the
-// march's plane loop holds 309 instructions, 20 of them a pass of the
-// transfer function's compare loop (four points a pass), at 48 registers;
+// march's plane loop holds 307 instructions, 20 of them a pass of the
+// transfer function's compare loop (four points a pass), at 54 registers;
 // the first design's held 754, 86 of them a loop over every segment with
-// its division, at 48. At the default frame (NVIDIA H100 80GB HBM3, 700 W;
-// chip_smoke.py) the march takes 0.75 ms and the pre-pass 0.02 ms at 4
-// points, against the first design's 1.73 ms: instruction issue, at
-// roughly the static count a sample. The compare loop is linear in the
-// points: the march takes 0.95 ms at 17, 1.73 at 64 and 4.90 at 256. The
-// backward holds 1,974 (first design 1,735) at 80 registers (72): the run
-// sums of the transfer function's gradient.
+// its division. At the default frame (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py, scripts/ab_sweep_grad.py) the march takes 0.75 ms and
+// the pre-pass 0.02 ms at 4 points, against the first design's 1.73 ms:
+// instruction issue, at roughly the static count a sample. The compare
+// loop is linear in the points: the march takes 0.98 ms at 17, 1.76 at 64
+// and 4.94 at 256. The gradient march's plane loop holds 1,061
+// instructions at 64 registers under __launch_bounds__(128, 8) (32 bytes
+// of spills; at 6 blocks an SM, 80 registers and none, it ran 7% slower),
+// about 300 of them the rarely taken flush of the transfer function's run
+// sums; the first backward, which sampled the raw volumes and made 16
+// warp reductions a sample, held 1,974 at 80. The backward takes 1.52 ms
+// (pre-pass 0.021, gradient march 1.47, fold 0.030) against the first
+// design's 3.60 ms, 1.85 at 17 points, 2.86 at 64 and 6.14 at 256.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -101,6 +127,10 @@ namespace {
 
 constexpr int kBlock = 128;      // threads of a march block: rays of one row
 constexpr int kPrepBlock = 256;  // threads of a pre-pass block
+constexpr int kFoldBlock = 256;  // threads of a fold block: texels of a slab
+// Blocks of the gradient march an SM must hold: 65,536 registers over
+// 8 x 128 threads leave it 64 a thread.
+constexpr int kGradBlocksPerSm = 8;
 constexpr int kMaxGridY = 65535;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -145,6 +175,13 @@ struct ScanArgs {
   float* row_w;              // (cs, V, 4)
   float* row_m;              // (cs, V) in the box, times the plane's valid
   int* counts;               // (cs, 4) non-finite texels: volume, r, g, b
+  // The backward's gradient planes of one chunk, laid out as the prepared
+  // ones (the pre-pass zeroes them, the gradient march adds into them,
+  // the fold adds them into the slabs), null where that gradient is not
+  // asked for; and each ray's colour and transmittance between chunks.
+  float* g_p_vol;            // (cs, nc, nb)
+  float* g_p_light;          // (cs, nc2, nb2, 4), channel 3 unused
+  float* carry;              // (V, U, 4), or null for one chunk
   int na, nc, nb, na2, nc2, nb2, tf_n, n_planes, n_u, n_v;
   int k_lo, k_hi;            // the chunk's planes
   int first, last;           // the chunk starts the carry, ends it
@@ -279,9 +316,15 @@ sweep_planes_kernel(const ScanArgs a) {
     const float wk = a.w_planes[k];
     float* pv = a.p_vol + kl * n_vol;
     float4* pl = reinterpret_cast<float4*>(a.p_light) + kl * n_light;
+    float* gv = a.g_p_vol == nullptr ? nullptr : a.g_p_vol + kl * n_vol;
+    float4* gl = a.g_p_light == nullptr
+        ? nullptr : reinterpret_cast<float4*>(a.g_p_light) + kl * n_light;
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_items;
          i += gridDim.x * blockDim.x) {
-      if (i < n_vol) pv[i] = omf * s0[i] + fz * s1[i];
+      if (i < n_vol) {
+        pv[i] = omf * s0[i] + fz * s1[i];
+        if (gv != nullptr) gv[i] = 0.0f;
+      }
       if (i < n_light) {
         float4 t;
         t.x = lomf * l0[3 * i] + lfz * l1[3 * i];
@@ -289,6 +332,7 @@ sweep_planes_kernel(const ScanArgs a) {
         t.z = lomf * l0[3 * i + 2] + lfz * l1[3 * i + 2];
         t.w = 0.0f;
         pl[i] = t;
+        if (gl != nullptr) gl[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
       if (i < a.n_u) {
         const float bk = ob + wk * (a.u[i] - ob);
@@ -319,6 +363,102 @@ sweep_planes_kernel(const ScanArgs a) {
   }
 }
 
+// One ray's pointers into the chunk's prepared planes (its row's entries,
+// its column's, the plane's texels and counts), at the chunk's first plane;
+// next() steps them to the following plane.
+struct Cursor {
+  const int4* row_i;
+  const float4* row_w;
+  const float* row_m;
+  const int4* col_i;
+  const float4* col_w;
+  const float* col_m;
+  const float* pv;
+  const float4* pl;
+  const int4* counts;
+  int n_u, n_v, n_vol, n_light;
+
+  __device__ __forceinline__ Cursor(const ScanArgs& a, int iu, int iv)
+      : row_i(reinterpret_cast<const int4*>(a.row_i) + iv),
+        row_w(reinterpret_cast<const float4*>(a.row_w) + iv),
+        row_m(a.row_m + iv),
+        col_i(reinterpret_cast<const int4*>(a.col_i) + iu),
+        col_w(reinterpret_cast<const float4*>(a.col_w) + iu),
+        col_m(a.col_m + iu),
+        pv(a.p_vol),
+        pl(reinterpret_cast<const float4*>(a.p_light)),
+        counts(reinterpret_cast<const int4*>(a.counts)),
+        n_u(a.n_u), n_v(a.n_v), n_vol(a.nc * a.nb),
+        n_light(a.nc2 * a.nb2) {}
+
+  __device__ __forceinline__ void next() {
+    row_i += n_v;
+    row_w += n_v;
+    row_m += n_v;
+    col_i += n_u;
+    col_w += n_u;
+    col_m += n_u;
+    pv += n_vol;
+    pl += n_light;
+    ++counts;
+  }
+};
+
+// One ray's fetch of the cursor's plane: its row's and column's taps and
+// weights, its mask, the volume's value and the light's three channels.
+// The march composites it and the gradient march differentiates it, so
+// both see the same bits by construction.
+struct Fetch {
+  int4 ri, ci;    // row taps (times the row length) and column taps
+  float4 rw, cw;  // their weights: volume 0, 1, then light 0, 1
+  float mask, field;
+  float light[3];
+};
+
+__device__ __forceinline__ Fetch fetch_plane(const Cursor& c) {
+  Fetch s;
+  s.ri = __ldg(c.row_i);
+  s.ci = __ldg(c.col_i);
+  s.rw = __ldg(c.row_w);
+  s.cw = __ldg(c.col_w);
+  s.mask = __ldg(c.row_m) * __ldg(c.col_m);
+  const int4 bad = __ldg(c.counts);
+  const int4 ri = s.ri, ci = s.ci;
+  const float4 rw = s.rw, cw = s.cw;
+
+  // The volume: four lerped texels.
+  const float* pv = c.pv;
+  const bool one_r = ri.y == ri.x, one_c = ci.y == ci.x;
+  const float a00 = __ldg(pv + (ri.x + ci.x));
+  const float a10 = one_r ? 0.0f : __ldg(pv + (ri.y + ci.x));
+  const float a01 = one_c ? 0.0f : __ldg(pv + (ri.x + ci.y));
+  const float a11 = one_r || one_c ? 0.0f : __ldg(pv + (ri.y + ci.y));
+  s.field = tap_value(a00, a10, a01, a11, one_r, one_c, rw.x, rw.y, cw.x,
+                      cw.y);
+
+  // The light volume: four float4 texels, three channels.
+  const float4* pl = c.pl;
+  const bool one_r2 = ri.w == ri.z, one_c2 = ci.w == ci.z;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4 b00 = __ldg(pl + (ri.z + ci.z));
+  const float4 b10 = one_r2 ? zero : __ldg(pl + (ri.w + ci.z));
+  const float4 b01 = one_c2 ? zero : __ldg(pl + (ri.z + ci.w));
+  const float4 b11 = one_r2 || one_c2 ? zero : __ldg(pl + (ri.w + ci.w));
+  s.light[0] = tap_value(b00.x, b10.x, b01.x, b11.x, one_r2, one_c2, rw.z,
+                         rw.w, cw.z, cw.w);
+  s.light[1] = tap_value(b00.y, b10.y, b01.y, b11.y, one_r2, one_c2, rw.z,
+                         rw.w, cw.z, cw.w);
+  s.light[2] = tap_value(b00.z, b10.z, b01.z, b11.z, one_r2, one_c2, rw.z,
+                         rw.w, cw.z, cw.w);
+  if ((bad.x | bad.y | bad.z | bad.w) != 0) {  // a plane with inf or NaN
+    s.field = nan_rule(s.field, a00, a10, a01, a11, bad.x);
+    s.light[0] = nan_rule(s.light[0], b00.x, b10.x, b01.x, b11.x, bad.y);
+    s.light[1] = nan_rule(s.light[1], b00.y, b10.y, b01.y, b11.y, bad.z);
+    s.light[2] = nan_rule(s.light[2], b00.z, b10.z, b01.z, b11.z, bad.w);
+  }
+  return s;
+}
+
 // One thread a ray over the chunk's planes; the colour and transmittance
 // start at (0, 1) in the first chunk and come from ``out`` otherwise.
 __global__ void __launch_bounds__(kBlock)
@@ -332,174 +472,53 @@ sweep_scan_kernel(const ScanArgs a) {
   const float4 carry = a.first ? make_float4(0.0f, 0.0f, 0.0f, 1.0f) : *out;
   float rgb[3] = {carry.x, carry.y, carry.z};
   float trans = carry.w;
-
-  const int cs = a.k_hi - a.k_lo;
-  const int n_vol = a.nc * a.nb, n_light = a.nc2 * a.nb2;
-  const float* pv = a.p_vol;
-  const float4* pl = reinterpret_cast<const float4*>(a.p_light);
-  const int4* row_i = reinterpret_cast<const int4*>(a.row_i) + iv;
-  const float4* row_w = reinterpret_cast<const float4*>(a.row_w) + iv;
-  const float* row_m = a.row_m + iv;
-  const int4* col_i = reinterpret_cast<const int4*>(a.col_i) + iu;
-  const float4* col_w = reinterpret_cast<const float4*>(a.col_w) + iu;
-  const float* col_m = a.col_m + iu;
-  const int4* counts = reinterpret_cast<const int4*>(a.counts);
   const float4* tf_col = reinterpret_cast<const float4*>(a.tf_col);
 
-  for (int kl = 0; kl < cs; ++kl) {
-    const int4 ri = __ldg(row_i), ci = __ldg(col_i);
-    const float4 rw = __ldg(row_w), cw = __ldg(col_w);
-    const float mask = __ldg(row_m) * __ldg(col_m);
-    const int4 bad = __ldg(counts + kl);
-    row_i += a.n_v;
-    row_w += a.n_v;
-    row_m += a.n_v;
-    col_i += a.n_u;
-    col_w += a.n_u;
-    col_m += a.n_u;
-
-    // The volume: four lerped texels.
-    const bool one_r = ri.y == ri.x, one_c = ci.y == ci.x;
-    const float a00 = __ldg(pv + (ri.x + ci.x));
-    const float a10 = one_r ? 0.0f : __ldg(pv + (ri.y + ci.x));
-    const float a01 = one_c ? 0.0f : __ldg(pv + (ri.x + ci.y));
-    const float a11 = one_r || one_c ? 0.0f : __ldg(pv + (ri.y + ci.y));
-    float field = tap_value(a00, a10, a01, a11, one_r, one_c, rw.x, rw.y,
-                            cw.x, cw.y);
-    pv += n_vol;
-
-    // The light volume: four float4 texels, three channels.
-    const bool one_r2 = ri.w == ri.z, one_c2 = ci.w == ci.z;
-    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    const float4 b00 = __ldg(pl + (ri.z + ci.z));
-    const float4 b10 = one_r2 ? zero : __ldg(pl + (ri.w + ci.z));
-    const float4 b01 = one_c2 ? zero : __ldg(pl + (ri.z + ci.w));
-    const float4 b11 = one_r2 || one_c2 ? zero : __ldg(pl + (ri.w + ci.w));
-    float light[3] = {
-        tap_value(b00.x, b10.x, b01.x, b11.x, one_r2, one_c2, rw.z, rw.w,
-                  cw.z, cw.w),
-        tap_value(b00.y, b10.y, b01.y, b11.y, one_r2, one_c2, rw.z, rw.w,
-                  cw.z, cw.w),
-        tap_value(b00.z, b10.z, b01.z, b11.z, one_r2, one_c2, rw.z, rw.w,
-                  cw.z, cw.w)};
-    pl += n_light;
-    if ((bad.x | bad.y | bad.z | bad.w) != 0) {  // a plane with inf or NaN
-      field = nan_rule(field, a00, a10, a01, a11, bad.x);
-      light[0] = nan_rule(light[0], b00.x, b10.x, b01.x, b11.x, bad.y);
-      light[1] = nan_rule(light[1], b00.y, b10.y, b01.y, b11.y, bad.z);
-      light[2] = nan_rule(light[2], b00.z, b10.z, b01.z, b11.z, bad.w);
-    }
-
-    const TfSample t = tf_sample(a.tf_pos, tf_col, a.tf_n, field);
-    const float tau = ((t.rgba[3] * a.sbi) * dl) * mask;
+  Cursor cur(a, iu, iv);
+  for (int kl = 0; kl < a.k_hi - a.k_lo; ++kl, cur.next()) {
+    const Fetch s = fetch_plane(cur);
+    const TfSample t = tf_sample(a.tf_pos, tf_col, a.tf_n, s.field);
+    const float tau = ((t.rgba[3] * a.sbi) * dl) * s.mask;
     const float seg = expf(-tau);
     const float wgt = trans * (1.0f - seg);
     for (int ch = 0; ch < 3; ++ch)
-      rgb[ch] = rgb[ch] + wgt * (t.rgba[ch] * (light[ch] + a.ambient));
+      rgb[ch] = rgb[ch] + wgt * (t.rgba[ch] * (s.light[ch] + a.ambient));
     trans = trans * seg;
   }
   *out = make_float4(rgb[0], rgb[1], rgb[2], a.last ? 1.0f - trans : trans);
 }
 
-// --- the backward -------------------------------------------------------
+// --- the backward: gradient march and fold ------------------------------
 
-// One ray's sample of plane k from the volumes themselves: the positions,
-// taps and values that the backward differentiates (the forward's values
-// by the same operations).
-struct Sample {
-  Hat hb, hc, hb2, hc2;
-  float fz, lfz;
-  long long s0, s1, l0, l1;  // element offsets of the four slabs
-  float field, mask;
-  float light[3];
-};
-
-__device__ __forceinline__ float slab_at(const float* vol, long long s0,
-                                         long long s1, float omf, float f,
-                                         int idx) {
-  return omf * __ldg(vol + s0 + idx) + f * __ldg(vol + s1 + idx);
-}
-
-// tap_value and nan_rule over a slab pair that is lerped at each tap. ``base`` holds
-// (nc, nb, nch) texels a slab.
-__device__ __forceinline__ float tap_sum(const float* base, long long s0,
-                                         long long s1, float omf, float f,
-                                         const Hat& hc, const Hat& hb,
-                                         int nb, int nch, int ch, int bad) {
-  const bool one_r = hc.i1 == hc.i0, one_c = hb.i1 == hb.i0;
-  const int r0 = hc.i0 * nb, r1 = hc.i1 * nb;
-  const float a00 = slab_at(base, s0, s1, omf, f, (r0 + hb.i0) * nch + ch);
-  const float a10 =
-      one_r ? 0.0f : slab_at(base, s0, s1, omf, f, (r1 + hb.i0) * nch + ch);
-  float a01 = 0.0f, a11 = 0.0f;
-  if (!one_c) {
-    a01 = slab_at(base, s0, s1, omf, f, (r0 + hb.i1) * nch + ch);
-    a11 = one_r ? 0.0f
-                : slab_at(base, s0, s1, omf, f, (r1 + hb.i1) * nch + ch);
-  }
-  const float val = tap_value(a00, a10, a01, a11, one_r, one_c, hc.w0,
-                              hc.w1, hb.w0, hb.w1);
-  return bad > 0 ? nan_rule(val, a00, a10, a01, a11, bad) : val;
-}
-
-__device__ __forceinline__ Sample sample_plane(const ScanArgs& a, int k,
-                                               float ob, float oc, float uu,
-                                               float vv) {
-  Sample s;
-  const float wk = __ldg(a.w_planes + k);
-  const float bk = ob + wk * (uu - ob);
-  const float ck = oc + wk * (vv - oc);
-  s.hb = hat(bk, a.nb);
-  s.hc = hat(ck, a.nc);
-  s.hb2 = hat(bk, a.nb2);
-  s.hc2 = hat(ck, a.nc2);
-  s.mask = (in_box(ck) * in_box(bk)) * __ldg(a.valid + k);
-
-  // The volume: the slab lerp, then the rows' taps, then the columns'.
-  s.fz = __ldg(a.fz + k);
-  const float omf = 1.0f - s.fz;
-  const long long plane = (long long)a.nc * a.nb;
-  s.s0 = __ldg(a.k0 + k) * plane;
-  s.s1 = __ldg(a.k1 + k) * plane;
-  s.field = tap_sum(a.vol, s.s0, s.s1, omf, s.fz, s.hc, s.hb, a.nb, 1, 0,
-                    __ldg(a.nonfinite + k));
-
-  // The light volume, three channels on its own grid.
-  s.lfz = __ldg(a.lfz + k);
-  const float lomf = 1.0f - s.lfz;
-  const long long lplane = (long long)a.nc2 * a.nb2 * 3;
-  s.l0 = __ldg(a.lk0 + k) * lplane;
-  s.l1 = __ldg(a.lk1 + k) * lplane;
-  for (int ch = 0; ch < 3; ++ch)
-    s.light[ch] = tap_sum(a.light, s.l0, s.l1, lomf, s.lfz, s.hc2, s.hb2,
-                          a.nb2, 3, ch, __ldg(a.lnonfinite + 3 * k + ch));
-  return s;
-}
-
-// Adds val[ch] into base[N idx + ch] once per run of lanes of the warp
-// that share idx: the run's values are summed by a segmented reduction and
-// its first lane makes the one atomic add per channel. Every lane of the
-// warp must call it; a lane with nothing to add passes idx -1. A run whose
-// sum is exactly 0 adds nothing.
+// Sums val over each run of neighbouring lanes of the warp that share
+// ``tap`` (a segmented reduction); true in the run's first lane, which
+// holds the run's sums. Every lane of the warp must call it.
 template <int N>
-__device__ __forceinline__ void warp_add(float* base, long long idx,
-                                         const float (&val)[N]) {
+__device__ __forceinline__ bool run_sums(int tap, float (&val)[N]) {
   const int lane = threadIdx.x & 31;
-  const long long prev = __shfl_up_sync(kFull, idx, 1);
-  const bool head = lane == 0 || prev != idx;
+  const int prev = __shfl_up_sync(kFull, tap, 1);
+  const bool head = lane == 0 || prev != tap;
   const unsigned heads = __ballot_sync(kFull, head);
   const unsigned after = heads & ~((2u << lane) - 1u);
   const int end = after ? __ffs(after) - 1 : 32;
-  float sum[N];
-  for (int ch = 0; ch < N; ++ch) sum[ch] = val[ch];
   for (int off = 1; off < 32; off <<= 1)
-    for (int ch = 0; ch < N; ++ch) {
-      const float o = __shfl_down_sync(kFull, sum[ch], off);
-      if (lane + off < end) sum[ch] += o;
+    for (int j = 0; j < N; ++j) {
+      const float o = __shfl_down_sync(kFull, val[j], off);
+      if (lane + off < end) val[j] += o;
     }
-  if (head && idx >= 0)
-    for (int ch = 0; ch < N; ++ch)
-      if (sum[ch] != 0.0f) atomicAdd(base + N * idx + ch, sum[ch]);
+  return head;
+}
+
+__device__ __forceinline__ void add_to(float* p, float val) {
+  if (val != 0.0f) atomicAdd(p, val);
+}
+
+// sm_90's vector atomic for global memory (red.global.add.v4.f32); the
+// pad channel adds 0.
+__device__ __forceinline__ void add_to(float4* p, float x, float y,
+                                       float z) {
+  if (x != 0.0f || y != 0.0f || z != 0.0f)
+    atomicAdd(p, make_float4(x, y, z, 0.0f));
 }
 
 // The transfer function's gradient of one run of planes that share the
@@ -537,12 +556,19 @@ __device__ __forceinline__ void tf_flush(const ScanArgs& a, bool shared,
   }
 }
 
-// The backward. Every thread of a block runs every plane, a thread past
-// the last column with a cotangent of zero, so that the warp reductions
-// see whole warps. Dynamic shared memory: the 5 tf_n floats of the
-// transfer function's gradient table when it is asked for and tf_shared.
-// The ten run sums cost registers; six blocks an SM hold them at 80.
-__global__ void __launch_bounds__(kBlock, 6)
+// The gradient march: one thread a ray over the chunk's prepared planes,
+// the fetches of fetch_plane, the closed-form recurrence with the
+// colour and transmittance carried from chunk to chunk in ``carry``.
+// Every thread of a block runs every plane, a thread past the last column
+// with a cotangent of zero, so that the warp reductions see whole warps.
+// A block is 128 rays of one row, so the row taps and weights are the
+// block's; per grid, each lane's cotangent times its two column weights
+// is summed over the run of lanes that share the first column tap, and
+// the run's first lane adds those sums times the two row weights into the
+// four texels of the chunk's gradient plane. Dynamic shared memory: the
+// 5 tf_n floats of the transfer function's gradient table when it is asked
+// for and tf_shared.
+__global__ void __launch_bounds__(kBlock, kGradBlocksPerSm)
 sweep_scan_grad_kernel(const ScanArgs a) {
   extern __shared__ float tfg[];  // [5 tf_n]: d positions, d colours
   const bool need_tf = a.g_pos != nullptr || a.g_col != nullptr;
@@ -557,23 +583,32 @@ sweep_scan_grad_kernel(const ScanArgs a) {
   const bool live = iu_raw < a.n_u;
   const int iu = live ? iu_raw : a.n_u - 1;
   const int iv = blockIdx.y;
-  const float ob = *a.o_b, oc = *a.o_c;
-  const float uu = a.u[iu], vv = a.v[iv];
-  const long long ray = (long long)iv * a.n_u + iu;
+  const int ray = iv * a.n_u + iu;
   const float dl = a.dl[ray];
 
-  float g[4], big_c[3];
-  for (int ch = 0; ch < 4; ++ch) g[ch] = live ? a.grad_out[ray * 4 + ch] : 0.0f;
-  for (int ch = 0; ch < 3; ++ch) big_c[ch] = a.out[ray * 4 + ch];
-  const float g_final = g[3] * (1.0f - a.out[ray * 4 + 3]);
+  const float4 go = live ? reinterpret_cast<const float4*>(a.grad_out)[ray]
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4 fin = reinterpret_cast<const float4*>(a.out)[ray];
+  const float g[3] = {go.x, go.y, go.z};
+  const float big_c[3] = {fin.x, fin.y, fin.z};
+  const float g_final = go.w * (1.0f - fin.w);
+  const float4 carry = a.first || !live
+      ? make_float4(0.0f, 0.0f, 0.0f, 1.0f)
+      : reinterpret_cast<const float4*>(a.carry)[ray];
+  float rgb[3] = {carry.x, carry.y, carry.z};
+  float trans = carry.w;
 
   int run = -2;  // the segment whose contributions acc holds (-2: none)
   float acc[10];
   for (int e = 0; e < 10; ++e) acc[e] = 0.0f;
-  float rgb[3] = {0.0f, 0.0f, 0.0f};
-  float trans = 1.0f;
-  for (int k = 0; k < a.n_planes; ++k) {
-    const Sample s = sample_plane(a, k, ob, oc, uu, vv);
+  const int n_vol = a.nc * a.nb, n_light = a.nc2 * a.nb2;
+  const bool want_vol = a.g_p_vol != nullptr;
+  const bool want_light = a.g_p_light != nullptr;
+  Cursor cur(a, iu, iv);
+  int at_vol = 0, at_light = 0;  // the plane's gradient planes
+  for (int kl = 0; kl < a.k_hi - a.k_lo;
+       ++kl, cur.next(), at_vol += n_vol, at_light += n_light) {
+    const Fetch s = fetch_plane(cur);
     const TfSample t = tf_sample(a.tf_pos, tf_col, n, s.field);
     const float tau = ((t.rgba[3] * a.sbi) * dl) * s.mask;
     const float seg = expf(-tau);
@@ -592,7 +627,7 @@ sweep_scan_grad_kernel(const ScanArgs a) {
     for (int ch = 0; ch < 3; ++ch) {
       const float g_emit = g[ch] * wgt;
       g_rgba[ch] = g_emit * (s.light[ch] + a.ambient);
-      g_light[ch] = g_emit * t.rgba[ch];
+      g_light[ch] = live ? g_emit * t.rgba[ch] : 0.0f;
     }
     g_rgba[3] = ((g_tau * s.mask) * dl) * a.sbi;
 
@@ -621,56 +656,60 @@ sweep_scan_grad_kernel(const ScanArgs a) {
                           : (tr == 0.0f || tr == 1.0f) ? 0.5f : 0.0f;
       const float g_raw = g_t * dclip;
       const float w = fmaxf(t.diff, 1e-12f);
-      g_x = g_raw / w;
+      const float inv_w = 1.0f / w;
+      g_x = g_raw * inv_w;
       const float g_w = t.diff >= 1e-12f
-          ? -g_raw * (s.field - t.p0) / (w * w) : 0.0f;
+          ? (-g_x * (s.field - t.p0)) * inv_w : 0.0f;
       acc[8] += -g_x - g_w;
       acc[9] += g_w;
     }
     if (!live) g_x = 0.0f;
 
-    // The volume: the field's cotangent through the taps and the lerp.
-    if (a.g_vol != nullptr && __any_sync(kFull, g_x != 0.0f)) {
-      const float wr[2] = {s.hc.w0, s.hc.w1};
-      const int ir[2] = {s.hc.i0, s.hc.i1};
-      const float wc[2] = {s.hb.w0, s.hb.w1};
-      const int ic[2] = {s.hb.i0, s.hb.i1};
-      for (int r = 0; r < 2; ++r)
-        for (int cc = 0; cc < 2; ++cc) {
-          const float gv = (g_x * wr[r]) * wc[cc];
-          const long long at = (long long)ir[r] * a.nb + ic[cc];
-          const bool on = live && gv != 0.0f;
-          const float v0[1] = {(1.0f - s.fz) * gv}, v1[1] = {s.fz * gv};
-          warp_add(a.g_vol, on ? s.s0 + at : -1, v0);
-          warp_add(a.g_vol, on ? s.s1 + at : -1, v1);
+    // The volume: the field's cotangent through the taps, into the
+    // chunk's gradient plane (the fold takes it through the slab lerp).
+    if (want_vol && __any_sync(kFull, g_x != 0.0f)) {
+      float sum[2] = {g_x * s.cw.x, g_x * s.cw.y};
+      if (run_sums(s.ci.x, sum)) {
+        float* gp = a.g_p_vol + at_vol;
+        const bool one_r = s.ri.y == s.ri.x, one_c = s.ci.y == s.ci.x;
+        add_to(gp + (s.ri.x + s.ci.x), s.rw.x * sum[0]);
+        if (!one_r) add_to(gp + (s.ri.y + s.ci.x), s.rw.y * sum[0]);
+        if (!one_c) {
+          add_to(gp + (s.ri.x + s.ci.y), s.rw.x * sum[1]);
+          if (!one_r) add_to(gp + (s.ri.y + s.ci.y), s.rw.y * sum[1]);
         }
+      }
     }
-    // The light volume: the same for each channel on its grid.
-    if (a.g_light != nullptr &&
+    // The light volume: the same for its three channels on its grid.
+    if (want_light &&
         __any_sync(kFull, g_light[0] != 0.0f || g_light[1] != 0.0f ||
                               g_light[2] != 0.0f)) {
-      const float wr[2] = {s.hc2.w0, s.hc2.w1};
-      const int ir[2] = {s.hc2.i0, s.hc2.i1};
-      const float wc[2] = {s.hb2.w0, s.hb2.w1};
-      const int ic[2] = {s.hb2.i0, s.hb2.i1};
-      for (int r = 0; r < 2; ++r)
-        for (int cc = 0; cc < 2; ++cc) {
-          const float wrc = wr[r] * wc[cc];
-          float v0[3], v1[3];
-          bool any = false;
-          for (int ch = 0; ch < 3; ++ch) {
-            const float gl = g_light[ch] * wrc;
-            v0[ch] = (1.0f - s.lfz) * gl;
-            v1[ch] = s.lfz * gl;
-            any = any || gl != 0.0f;
-          }
-          const long long at = (long long)ir[r] * a.nb2 + ic[cc];
-          const bool on = live && any;
-          warp_add(a.g_light, on ? s.l0 / 3 + at : -1, v0);
-          warp_add(a.g_light, on ? s.l1 / 3 + at : -1, v1);
+      float sum[6];
+      for (int ch = 0; ch < 3; ++ch) {
+        sum[ch] = g_light[ch] * s.cw.z;
+        sum[3 + ch] = g_light[ch] * s.cw.w;
+      }
+      if (run_sums(s.ci.z, sum)) {
+        float4* gp = reinterpret_cast<float4*>(a.g_p_light) + at_light;
+        const bool one_r = s.ri.w == s.ri.z, one_c = s.ci.w == s.ci.z;
+        const float r0 = s.rw.z, r1 = s.rw.w;
+        add_to(gp + (s.ri.z + s.ci.z), r0 * sum[0], r0 * sum[1], r0 * sum[2]);
+        if (!one_r)
+          add_to(gp + (s.ri.w + s.ci.z), r1 * sum[0], r1 * sum[1],
+                 r1 * sum[2]);
+        if (!one_c) {
+          add_to(gp + (s.ri.z + s.ci.w), r0 * sum[3], r0 * sum[4],
+                 r0 * sum[5]);
+          if (!one_r)
+            add_to(gp + (s.ri.w + s.ci.w), r1 * sum[3], r1 * sum[4],
+                   r1 * sum[5]);
         }
+      }
     }
   }
+  if (!a.last && live)
+    reinterpret_cast<float4*>(a.carry)[ray] =
+        make_float4(rgb[0], rgb[1], rgb[2], trans);
 
   if (!need_tf) return;
   if (live) tf_flush(a, shared, tfg, run, acc);
@@ -683,6 +722,77 @@ sweep_scan_grad_kernel(const ScanArgs a) {
       if (a.g_pos != nullptr) atomicAdd(a.g_pos + e, sum);
     } else if (a.g_col != nullptr) {
       atomicAdd(a.g_col + (e - n), sum);
+    }
+  }
+}
+
+// The fold, one launch a chunk after its gradient march: the chunk's
+// gradient planes through the slab lerps, g[k0[k]] += (1 - fz[k]) g_p[k]
+// and g[k1[k]] += fz[k] g_p[k], as a gather. blockIdx.y walks the slabs
+// of the volume (the first na) and of the light volume, the block's
+// threads the texels of its slab; a block finds the chunk's first and
+// last planes that read its slab as k0 and as k1, and each thread adds,
+// in order, the planes between that do (every k0 plane, then every k1
+// plane: index_add_'s order). So every texel is written by one thread and
+// no atomic adds into the gradients.
+__global__ void __launch_bounds__(kFoldBlock)
+sweep_fold_kernel(const ScanArgs a) {
+  __shared__ int span[4];  // first and last plane reading the slab as k0, k1
+  const bool light = blockIdx.y >= a.na;
+  if ((light ? a.g_p_light : a.g_p_vol) == nullptr) return;
+  const int slab = light ? blockIdx.y - a.na : blockIdx.y;
+  const int cs = a.k_hi - a.k_lo;
+  const long long* k0 = (light ? a.lk0 : a.k0) + a.k_lo;
+  const long long* k1 = (light ? a.lk1 : a.k1) + a.k_lo;
+  const float* fz = (light ? a.lfz : a.fz) + a.k_lo;
+  if (threadIdx.x < 4) span[threadIdx.x] = threadIdx.x & 1 ? -1 : cs;
+  __syncthreads();
+  for (int kl = threadIdx.x; kl < cs; kl += blockDim.x) {
+    if (k0[kl] == slab) {
+      atomicMin(span, kl);
+      atomicMax(span + 1, kl);
+    }
+    if (k1[kl] == slab) {
+      atomicMin(span + 2, kl);
+      atomicMax(span + 3, kl);
+    }
+  }
+  __syncthreads();
+  const int lo0 = span[0], hi0 = span[1], lo1 = span[2], hi1 = span[3];
+  if (hi0 < 0 && hi1 < 0) return;
+  const int texels = light ? a.nc2 * a.nb2 : a.nc * a.nb;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < texels;
+       i += gridDim.x * blockDim.x) {
+    if (!light) {
+      float* g = a.g_vol + (long long)slab * texels + i;
+      float sum = *g;
+      for (int kl = lo0; kl <= hi0; ++kl)
+        if (k0[kl] == slab)
+          sum = sum + (1.0f - fz[kl]) * a.g_p_vol[kl * texels + i];
+      for (int kl = lo1; kl <= hi1; ++kl)
+        if (k1[kl] == slab) sum = sum + fz[kl] * a.g_p_vol[kl * texels + i];
+      *g = sum;
+    } else {
+      const float4* gp = reinterpret_cast<const float4*>(a.g_p_light) + i;
+      float* g = a.g_light + ((long long)slab * texels + i) * 3;
+      float sum[3] = {g[0], g[1], g[2]};
+      for (int kl = lo0; kl <= hi0; ++kl)
+        if (k0[kl] == slab) {
+          const float w = 1.0f - fz[kl];
+          const float4 t = gp[kl * texels];
+          sum[0] = sum[0] + w * t.x;
+          sum[1] = sum[1] + w * t.y;
+          sum[2] = sum[2] + w * t.z;
+        }
+      for (int kl = lo1; kl <= hi1; ++kl)
+        if (k1[kl] == slab) {
+          const float w = fz[kl];
+          const float4 t = gp[kl * texels];
+          sum[0] = sum[0] + w * t.x;
+          sum[1] = sum[1] + w * t.y;
+          sum[2] = sum[2] + w * t.z;
+        }
+      for (int ch = 0; ch < 3; ++ch) g[ch] = sum[ch];
     }
   }
 }
@@ -706,6 +816,17 @@ extern "C" int cpm_sweep_scan(const ScanArgs* args, void* stream) {
   if (a.n_u <= 0 || a.n_v <= 0) return 0;
   const dim3 grid((a.n_u + kBlock - 1) / kBlock, a.n_v);
   sweep_scan_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cpm_sweep_fold(const ScanArgs* args, void* stream) {
+  const ScanArgs a = *args;
+  const int texels = max(a.nc * a.nb, a.nc2 * a.nb2);
+  if (a.k_hi <= a.k_lo || texels <= 0) return 0;
+  if (a.na + a.na2 > kMaxGridY) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid(min((texels + kFoldBlock - 1) / kFoldBlock, 1024),
+                  a.na + a.na2);
+  sweep_fold_kernel<<<grid, kFoldBlock, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

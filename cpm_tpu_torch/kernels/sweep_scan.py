@@ -30,17 +30,31 @@ number of points: the kernels read them from device memory, and the
 backward sums its gradient in a shared table where ``5 P`` floats fit
 under ``TF_SHARED_BYTES``, in the gradient itself otherwise.
 
+The backward is three kernels a chunk (under ``PLANE_BUDGET`` bytes of
+:func:`grad_plane_bytes` a plane): the same pre-pass, which also zeroes
+the chunk's gradient planes (the volume's (S, nc, nb), the light's (S,
+nc2, nb2, 4)); the gradient march (one thread a ray, the same sample
+function as the march), which adds each sample's cotangent through its
+taps into the gradient planes and carries each ray's colour and
+transmittance from chunk to chunk in a (V, U, 4) scratch where there is
+more than one chunk; and the fold (:func:`sweep_fold`), which adds the
+gradient planes through the slab lerps into the volumes' gradients. Its
+plain versions are ``ops/sweep_render._scan_planes_grad_chunked_torch``
+and ``ops/sweep_render._fold_plane_grads_torch``.
+
 :func:`sweep_scan` takes the permuted volumes, the transfer function's
 points, the scan's constants (``ops/sweep_render.scan_constants``) and the
 base-grid rays, checks them and launches the forward on the current
 stream; where a gradient is asked for it goes through :class:`SweepScan`,
-whose backward launches the backward kernel. They raise on tensors of
+whose backward launches the backward kernels. They raise on tensors of
 another device, type, shape or layout, on a transfer function without a
 point, on a constant that requires grad and on a launch that fails.
-``sweep_planes.launches``, ``sweep_scan_forward.launches`` (the march)
-and ``sweep_scan_backward.launches`` count the launches. :func:`_forward`
-is the forward with the scratch it filled, which :func:`_filled` reads
-for checks of the pre-pass.
+``sweep_planes.launches`` (forward and backward), ``sweep_scan_forward
+.launches`` (the march), ``sweep_scan_backward.launches`` (the gradient
+march) and ``sweep_fold.launches`` count the launches. :func:`_forward`
+and :func:`_backward` are the forward and the backward with the scratch
+they filled, which :func:`_filled` and :func:`_grad_planes` read for
+checks.
 """
 
 from __future__ import annotations
@@ -78,7 +92,8 @@ TF_SHARED_BYTES = 48 * 1024
 # this count, as the first design's was, so that the shares compare. The
 # backward marches again and adds 187: the recurrence and the cotangents
 # 47, the transfer function's adjoint 36, the scatter weights 72 and one
-# add per gradient contribution 32.
+# add per gradient contribution 32 (the scatter's through the taps and
+# the slab lerps, whichever kernel does them).
 OPS_PER_SAMPLE = 180
 OPS_PER_TF_COMPARE = 1
 OPS_PER_TF_LERP = 18
@@ -119,11 +134,19 @@ def plane_bytes(nc: int, nb: int, nc2: int, nb2: int, n_u: int,
     return 4 * nc * nb + 16 * nc2 * nb2 + 36 * (n_u + n_v) + 16
 
 
+def grad_plane_bytes(nc: int, nb: int, nc2: int, nb2: int, n_u: int,
+                     n_v: int) -> int:
+    """Bytes of one plane of the backward: a prepared plane and its two
+    gradient planes, the volume's (nc, nb) and the light's (nc2, nb2, 4)."""
+    return plane_bytes(nc, nb, nc2, nb2, n_u, n_v) + 4 * nc * nb + \
+        16 * nc2 * nb2
+
+
 def chunk_plan(n_planes: int, per_plane: int,
                budget: int) -> list[tuple[int, int]]:
-    """The forward's chunks: [lo, hi) ranges of planes, in order, that
-    cover every plane once, each with as many planes as fit in ``budget``
-    bytes of ``per_plane`` each (at least one)."""
+    """The chunks of a forward or a backward: [lo, hi) ranges of planes, in
+    order, that cover every plane once, each with as many planes as fit in
+    ``budget`` bytes of ``per_plane`` each (at least one)."""
     step = max(1, budget // max(1, per_plane))
     return [(lo, min(lo + step, n_planes))
             for lo in range(0, n_planes, step)]
@@ -136,6 +159,12 @@ def _plane_fields(n: int, nc: int, nb: int, nc2: int, nb2: int, n_u: int,
     return ((f32, (n, nc, nb)), (f32, (n, nc2, nb2, 4)), (i32, (n, n_u, 4)),
             (f32, (n, n_u, 4)), (f32, (n, n_u)), (i32, (n, n_v, 4)),
             (f32, (n, n_v, 4)), (f32, (n, n_v)), (i32, (n, 4)))
+
+
+def _grad_fields(n: int, nc: int, nb: int, nc2: int, nb2: int) -> tuple:
+    """(dtype, shape) of the backward's gradient planes for ``n`` planes:
+    the volume's and the light's, with the prepared planes' layout."""
+    return ((torch.float32, (n, nc, nb)), (torch.float32, (n, nc2, nb2, 4)))
 
 
 def _field_bytes(shape: tuple) -> int:
@@ -191,9 +220,12 @@ def _prepare_planes_torch(vol_p: Tensor, light_p: Tensor, c, u: Tensor,
         counts=torch.cat([c.nonfinite[ks][:, None], c.lnonfinite[ks]], 1))
 
 
-# The pointer fields of ``struct ScanArgs`` that a chunk's Planes fill.
+# The pointer fields of ``struct ScanArgs`` that a chunk's Planes fill,
+# and those of the backward's scratch after them: the gradient planes and
+# the rays' carry from chunk to chunk.
 _PLANE_ARGS = ("p_vol", "p_light", "col_i", "col_w", "col_m", "row_i",
                "row_w", "row_m", "counts")
+_GRAD_ARGS = ("g_p_vol", "g_p_light")
 
 
 class _Args(ctypes.Structure):
@@ -203,7 +235,7 @@ class _Args(ctypes.Structure):
         "vol", "light", "tf_pos", "tf_col", "k0", "k1", "fz", "lk0", "lk1",
         "lfz", "valid", "w_planes", "u", "v", "dl", "o_b", "o_c",
         "nonfinite", "lnonfinite", "out", "grad_out", "g_vol", "g_light",
-        "g_pos", "g_col", *_PLANE_ARGS)] + [
+        "g_pos", "g_col", *_PLANE_ARGS, *_GRAD_ARGS, "carry")] + [
         (name, ctypes.c_int) for name in (
             "na", "nc", "nb", "na2", "nc2", "nb2", "tf_n", "n_planes", "n_u",
             "n_v", "k_lo", "k_hi", "first", "last", "tf_shared")] + [
@@ -220,7 +252,7 @@ def build() -> tuple[Path, str]:
 def _library():
     lib = ctypes.CDLL(str(build()[0]))
     for fn in (lib.cpm_sweep_planes, lib.cpm_sweep_scan,
-               lib.cpm_sweep_scan_grad):
+               lib.cpm_sweep_scan_grad, lib.cpm_sweep_fold):
         fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -272,6 +304,8 @@ def _args(vol_p: Tensor, light_p: Tensor, tf_pos: Tensor | None,
     for name, t in (("out", out), ("grad_out", grad_out)):
         if t is not None:
             _check(name, t, f32, (n_v, n_u, 4), dev)
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
     p = 0
     if tf_pos is not None:
         p = tf_pos.shape[0]
@@ -290,7 +324,7 @@ def _args(vol_p: Tensor, light_p: Tensor, tf_pos: Tensor | None,
         *(_ptr(t) for t in (vol_p, light_p, tf_pos, tf_col, c.k0, c.k1, c.fz,
                             c.lk0, c.lk1, c.lfz, c.valid, c.w_planes, u, v,
                             c.dl, c.o_b, c.o_c, c.nonfinite, c.lnonfinite,
-                            out, grad_out, *grads)), *(None,) * 9,
+                            out, grad_out, *grads)), *(None,) * 12,
         na, nc, nb, na2, nc2, nb2, p, s, n_u, n_v, 0, s, 1, 1, 0,
         float(c.sbi), float(ambient))
 
@@ -302,30 +336,42 @@ def _launch(fn, args: _Args, dev, what: str) -> None:
         raise RuntimeError(f"sweep scan {what} kernel: CUDA error {err}")
 
 
-def _scratch(args: _Args, n: int, dev) -> tuple[Tensor, tuple]:
-    """Room for ``n`` prepared planes in one allocation, its fields'
-    pointers set in ``args``: (the buffer, the fields' (dtype, shape))."""
+def _scratch(args: _Args, n: int, dev, grad: bool = False,
+             carry: bool = False) -> tuple[Tensor, tuple]:
+    """Room for ``n`` prepared planes in one allocation, with ``grad`` also
+    their gradient planes and with ``carry`` the rays' (V, U, 4) carry, its
+    fields' pointers set in ``args`` (``_PLANE_ARGS``, then ``_GRAD_ARGS``,
+    then ``carry``): (the buffer, the fields' (dtype, shape))."""
     fields = _plane_fields(n, args.nc, args.nb, args.nc2, args.nb2, args.n_u,
                            args.n_v)
+    names = _PLANE_ARGS
+    if grad:
+        fields += _grad_fields(n, args.nc, args.nb, args.nc2, args.nb2)
+        names += _GRAD_ARGS
+    if carry:
+        fields += ((torch.float32, (args.n_v, args.n_u, 4)),)
+        names += ("carry",)
     if max(math.prod(shape) for _, shape in fields) >= 2 ** 31:
         raise ValueError("a chunk of planes too large for 32-bit offsets")
     buf = torch.empty(sum(_field_bytes(shape) for _, shape in fields),
                       dtype=torch.uint8, device=dev)
     at = buf.data_ptr()
-    for name, (_, shape) in zip(_PLANE_ARGS, fields):
+    for name, (_, shape) in zip(names, fields):
         setattr(args, name, at)
         at += _field_bytes(shape)
     return buf, fields
 
 
-def _views(buf: Tensor, fields: tuple) -> Planes:
-    """The :class:`Planes` that ``buf`` holds."""
+def _views(buf: Tensor, fields: tuple) -> tuple:
+    """The fields that ``buf`` holds, in order: those of a
+    :class:`Planes`, then the gradient planes and the carry where it has
+    them."""
     out, at = [], 0
     for dtype, shape in fields:
         n = 4 * math.prod(shape)
         out.append(buf[at:at + n].view(dtype).view(shape))
         at += _field_bytes(shape)
-    return Planes(*out)
+    return tuple(out)
 
 
 def sweep_planes(args: _Args, lo: int, hi: int, dev) -> None:
@@ -365,7 +411,8 @@ def _filled(scratch: tuple) -> tuple[Planes, tuple[int, int]]:
     """The last chunk's :class:`Planes` in a forward's scratch, and its
     [lo, hi) planes."""
     buf, fields, (lo, hi) = scratch
-    return Planes(*(t[:hi - lo] for t in _views(buf, fields))), (lo, hi)
+    views = _views(buf, fields)[:len(Planes._fields)]
+    return Planes(*(t[:hi - lo] for t in views)), (lo, hi)
 
 
 def sweep_scan_forward(vol_p: Tensor, light_p: Tensor, tf_pos: Tensor,
@@ -386,31 +433,77 @@ def sweep_scan_forward(vol_p: Tensor, light_p: Tensor, tf_pos: Tensor,
     return _forward(vol_p, light_p, tf_pos, tf_col, c, u, v, ambient)[0]
 
 
-def sweep_scan_backward(vol_p: Tensor, light_p: Tensor, tf_pos: Tensor,
-                        tf_col: Tensor, c, u: Tensor, v: Tensor,
-                        ambient: float, out: Tensor, grad_out: Tensor,
-                        needs=(True,) * 4) -> tuple:
-    """The gradients (vol_p, light_p, tf positions, tf colours) for the
-    cotangent ``grad_out`` of the forward's ``out``, in one launch; an
-    entry of ``needs`` that is False gives None and is not computed. The
-    gradients are sums of atomic adds, whose order changes from run to
-    run."""
+def sweep_fold(args: _Args, dev) -> None:
+    """One launch of the fold kernel: the gradient planes of the chunk that
+    ``args`` describes, added into the gradients of the slabs whose lerps
+    made those planes."""
+    _launch(_library().cpm_sweep_fold, args, dev, "fold")
+    sweep_fold.launches += 1
+
+
+def _backward(vol_p: Tensor, light_p: Tensor, tf_pos: Tensor,
+              tf_col: Tensor, c, u: Tensor, v: Tensor, ambient: float,
+              out: Tensor, grad_out: Tensor, needs=(True,) * 4) -> tuple:
+    """:func:`sweep_scan_backward`, with the scratch it filled: (the
+    gradients, (the scratch, its fields, the last chunk's [lo, hi) planes)
+    or None where nothing was launched); :func:`_grad_planes` reads it."""
     dev = vol_p.device
     grads = tuple(torch.zeros_like(t) if need else None for t, need in zip(
         (vol_p, light_p, tf_pos, tf_col), needs))
     args = _args(vol_p, light_p, tf_pos, tf_col, c, u, v, ambient, out,
                  grad_out, grads)
     args.tf_shared = int(5 * 4 * args.tf_n <= TF_SHARED_BYTES)
-    if out.numel() == 0 or not any(needs):
-        return grads
-    _launch(_library().cpm_sweep_scan_grad, args, dev, "backward")
-    sweep_scan_backward.launches += 1
-    return grads
+    plan = chunk_plan(args.n_planes, grad_plane_bytes(
+        args.nc, args.nb, args.nc2, args.nb2, args.n_u, args.n_v),
+        PLANE_BUDGET)
+    if out.numel() == 0 or not any(needs) or not plan:
+        return grads, None
+    buf, fields = _scratch(args, max(hi - lo for lo, hi in plan), dev,
+                           grad=True, carry=len(plan) > 1)
+    # A gradient plane that is not asked for is neither zeroed, nor added
+    # into, nor folded.
+    for name, grad in zip(_GRAD_ARGS, grads):
+        if grad is None:
+            setattr(args, name, None)
+    lib = _library()  # ``buf`` is held until every launch is enqueued
+    for i, (lo, hi) in enumerate(plan):
+        sweep_planes(args, lo, hi, dev)
+        args.first, args.last = int(i == 0), int(i == len(plan) - 1)
+        _launch(lib.cpm_sweep_scan_grad, args, dev, "backward")
+        sweep_scan_backward.launches += 1
+        sweep_fold(args, dev)
+    return grads, (buf, fields, plan[-1])
+
+
+def _grad_planes(scratch: tuple) -> tuple:
+    """The last chunk's gradient planes in a backward's scratch, the
+    volume's (S, nc, nb) and the light's (S, nc2, nb2, 4), and its [lo, hi)
+    planes."""
+    buf, fields, (lo, hi) = scratch
+    g_vol, g_light = _views(buf, fields)[len(Planes._fields):][:2]
+    return g_vol[:hi - lo], g_light[:hi - lo], (lo, hi)
+
+
+def sweep_scan_backward(vol_p: Tensor, light_p: Tensor, tf_pos: Tensor,
+                        tf_col: Tensor, c, u: Tensor, v: Tensor,
+                        ambient: float, out: Tensor, grad_out: Tensor,
+                        needs=(True,) * 4) -> tuple:
+    """The gradients (vol_p, light_p, tf positions, tf colours) for the
+    cotangent ``grad_out`` of the forward's ``out``: per chunk of planes
+    (:func:`chunk_plan` under ``PLANE_BUDGET`` bytes of
+    :func:`grad_plane_bytes` each) the pre-pass, the gradient march (one
+    thread a ray, into the chunk's gradient planes) and the fold (the
+    gradient planes into the slabs), one launch each. An entry of
+    ``needs`` that is False gives None and is not computed. The gradients
+    are sums of atomic adds, whose order changes from run to run."""
+    return _backward(vol_p, light_p, tf_pos, tf_col, c, u, v, ambient, out,
+                     grad_out, needs)[0]
 
 
 sweep_planes.launches = 0
 sweep_scan_forward.launches = 0
 sweep_scan_backward.launches = 0
+sweep_fold.launches = 0
 
 
 class SweepScan(torch.autograd.Function):
@@ -429,9 +522,12 @@ class SweepScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         vol_p, light_p, tf_pos, tf_col, u, v, out = ctx.saved_tensors
+        grad_out = grad_out.contiguous()
+        if grad_out.data_ptr() % 16:
+            grad_out = grad_out.clone()
         grads = sweep_scan_backward(
             vol_p, light_p, tf_pos, tf_col, ctx.c, u, v, ctx.ambient, out,
-            grad_out.contiguous(), ctx.needs_input_grad[:4])
+            grad_out, ctx.needs_input_grad[:4])
         return (*grads, None, None, None, None)
 
 

@@ -333,10 +333,13 @@ def _tf_sample_grad(p: Tensor, c: Tensor, x: Tensor, g: Tensor):
 def _scan_planes_grad_torch(vol_p: Tensor, light_p: Tensor,
                             tf: TransferFunction, c: ScanConstants,
                             u: Tensor, v: Tensor, ambient: float,
-                            out: Tensor, grad_out: Tensor):
+                            out: Tensor, grad_out: Tensor, planes=None):
     """The plane scan's backward, plain version of the backward kernel:
     (d vol_p, d light_p, d tf.positions, d tf.colors) for the cotangent
-    ``grad_out`` of the forward's ``out`` (V, U, 4).
+    ``grad_out`` of the forward's ``out`` (V, U, 4). Each plane is sampled
+    through hat-matrix products, or with ``planes`` (every plane's, from
+    ``sweep_scan._prepare_planes_torch``) by the kernels' taps; either way
+    the cotangents go back through the hat matrices.
 
     The closed-form recurrence of front-to-back compositing: with C and
     T_final from ``out``, each ray is marched again with its transmittance
@@ -351,8 +354,7 @@ def _scan_planes_grad_torch(vol_p: Tensor, light_p: Tensor,
     sbi, o_b, o_c, dl = c.sbi, c.o_b, c.o_c, c.dl
     s0, s1, fz = vol_p[c.k0], vol_p[c.k1], c.fz
     l0, l1, fz2 = light_p[c.lk0], light_p[c.lk1], c.lfz
-    g_s0, g_s1 = torch.zeros_like(s0), torch.zeros_like(s1)
-    g_l0, g_l1 = torch.zeros_like(l0), torch.zeros_like(l1)
+    g_p_vol, g_p_light = torch.zeros_like(s0), torch.zeros_like(l0)
     p, cols = tf.positions.detach(), tf.colors.detach()
     g_pos, g_cols = torch.zeros_like(p), torch.zeros_like(cols)
 
@@ -373,8 +375,11 @@ def _scan_planes_grad_torch(vol_p: Tensor, light_p: Tensor,
         in_b = ((b_k >= 0.0) & (b_k <= 1.0)).to(torch.float32)
         in_c = ((c_k >= 0.0) & (c_k <= 1.0)).to(torch.float32)
         mask = (in_c[:, None] * in_b[None, :]) * c.valid[k]
-        field = (Rc @ slab) @ Rb.T
-        light = torch.einsum("vc,cbk,ub->vuk", Rc2, lslab, Rb2)
+        if planes is None:
+            field = (Rc @ slab) @ Rb.T
+            light = torch.einsum("vc,cbk,ub->vuk", Rc2, lslab, Rb2)
+        else:
+            field, light, _ = _fetch_plane_torch(planes, k)
         rgba = tf.sample(field).detach()
         tau = rgba[..., 3] * sbi * dl * mask
         seg_t = torch.exp(-tau)
@@ -391,17 +396,176 @@ def _scan_planes_grad_torch(vol_p: Tensor, light_p: Tensor,
         g_x, gp, gc = _tf_sample_grad(p, cols, field, g_rgba)
         g_pos += gp
         g_cols += gc
-        g_slab = Rc.T @ g_x @ Rb  # (Nc, Nb)
-        g_s0[k] = (1.0 - fz[k]) * g_slab
-        g_s1[k] = fz[k] * g_slab
-        g_lslab = torch.einsum("vc,vuk,ub->cbk", Rc2, g_emit * rgba[..., :3],
-                               Rb2)
-        g_l0[k] = (1.0 - fz2[k]) * g_lslab
-        g_l1[k] = fz2[k] * g_lslab
-    g_vol = torch.zeros_like(vol_p).index_add_(0, c.k0, g_s0).index_add_(
-        0, c.k1, g_s1)
-    g_light = torch.zeros_like(light_p).index_add_(0, c.lk0, g_l0) \
-        .index_add_(0, c.lk1, g_l1)
+        g_p_vol[k] = Rc.T @ g_x @ Rb  # (Nc, Nb)
+        g_p_light[k] = torch.einsum("vc,vuk,ub->cbk", Rc2,
+                                    g_emit * rgba[..., :3], Rb2)
+    g_vol, g_light = _fold_plane_grads_torch(
+        torch.zeros_like(vol_p), torch.zeros_like(light_p), g_p_vol,
+        g_p_light, c, 0, S)
+    return g_vol, g_light, g_pos, g_cols
+
+
+def _fold_plane_grads_torch(g_vol: Tensor, g_light: Tensor, g_p_vol: Tensor,
+                            g_p_light: Tensor, c: ScanConstants, lo: int,
+                            hi: int) -> tuple:
+    """The fold kernel's plain version: the gradient planes of planes
+    ``lo`` to ``hi``, the volume's ``g_p_vol`` (hi - lo, Nc, Nb) and the
+    light's ``g_p_light`` (hi - lo, Nc2, Nb2, 3, or 4 with the kernels'
+    pad), added through each plane's slab lerp into ``g_vol`` and
+    ``g_light`` in place: (1 - fz) into slab k0, then fz into slab k1, in
+    the planes' order. Returns (g_vol, g_light)."""
+    ks = slice(lo, hi)
+    fz = c.fz[ks][:, None, None]
+    lfz = c.lfz[ks][:, None, None, None]
+    g_p_light = g_p_light[..., :3]
+    g_vol.index_add_(0, c.k0[ks], (1.0 - fz) * g_p_vol).index_add_(
+        0, c.k1[ks], fz * g_p_vol)
+    g_light.index_add_(0, c.lk0[ks], (1.0 - lfz) * g_p_light).index_add_(
+        0, c.lk1[ks], lfz * g_p_light)
+    return g_vol, g_light
+
+
+def _fetch_taps_torch(plane: Tensor, ri0: Tensor, ri1: Tensor, ci0: Tensor,
+                      ci1: Tensor, rw0: Tensor, rw1: Tensor, cw0: Tensor,
+                      cw1: Tensor, bad: Tensor) -> Tensor:
+    """The kernels' trilinear value of a prepared plane (``tap_value`` and
+    ``nan_rule`` in the source): ``plane`` (Nc * Nb, C) flat, the rows'
+    taps (premultiplied by Nb) and weights (V,), the columns' (U,), the
+    plane's non-finite counts ``bad`` (C,) -> (V, U, C). A clamped second
+    tap (equal to the first) is not read."""
+    one_r = (ri1 == ri0)[:, None, None]
+    one_c = (ci1 == ci0)[None, :, None]
+    r0, r1 = ri0.long()[:, None], ri1.long()[:, None]
+    c0, c1 = ci0.long()[None, :], ci1.long()[None, :]
+    zero = plane.new_zeros(())
+    a00 = plane[r0 + c0]
+    a10 = torch.where(one_r, zero, plane[r1 + c0])
+    a01 = torch.where(one_c, zero, plane[r0 + c1])
+    a11 = torch.where(one_r | one_c, zero, plane[r1 + c1])
+    rw0, rw1 = rw0[:, None, None], rw1[:, None, None]
+    cw0, cw1 = cw0[None, :, None], cw1[None, :, None]
+    col0 = torch.where(one_r, rw0 * a00, rw0 * a00 + rw1 * a10)
+    col1 = torch.where(one_r, rw0 * a01, rw0 * a01 + rw1 * a11)
+    val = torch.where(one_c, cw0 * col0, cw0 * col0 + cw1 * col1)
+    read = sum((~torch.isfinite(t)).to(torch.int32)
+               for t in (a00, a10, a01, a11))
+    return torch.where(bad > read, torch.nan, val)
+
+
+def _fetch_plane_torch(planes, kl: int) -> tuple:
+    """The kernels' fetch of plane ``kl`` of a chunk's prepared planes
+    (``fetch_plane`` in the source), for every ray: (field (V, U), light
+    (V, U, 3), mask (V, U))."""
+    ri, ci = planes.row_i[kl], planes.col_i[kl]
+    rw, cw = planes.row_w[kl], planes.col_w[kl]
+    bad = planes.counts[kl]
+    field = _fetch_taps_torch(
+        planes.vol[kl].reshape(-1, 1), ri[:, 0], ri[:, 1], ci[:, 0],
+        ci[:, 1], rw[:, 0], rw[:, 1], cw[:, 0], cw[:, 1], bad[:1])[..., 0]
+    light = _fetch_taps_torch(
+        planes.light[kl].reshape(-1, 4)[:, :3], ri[:, 2], ri[:, 3], ci[:, 2],
+        ci[:, 3], rw[:, 2], rw[:, 3], cw[:, 2], cw[:, 3], bad[1:])
+    mask = planes.row_m[kl][:, None] * planes.col_m[kl][None, :]
+    return field, light, mask
+
+
+def _row_scatter_torch(g_plane: Tensor, ri0: Tensor, ri1: Tensor,
+                       ci0: Tensor, ci1: Tensor, rw0: Tensor, rw1: Tensor,
+                       cw0: Tensor, cw1: Tensor, vals: Tensor,
+                       n_col: int) -> None:
+    """The gradient march's scatter, in torch: each ray's cotangents
+    ``vals`` (V, U, C) times its two column weights, summed per row over
+    the rays that share the first column tap, then times the row's two
+    weights into the four texels of the taps of ``g_plane`` (Nc * Nb, C,
+    flat), in place; a clamped second tap takes nothing."""
+    V, U, C = vals.shape
+    c0 = ci0.long()
+    sums = [vals.new_zeros((V, n_col, C)).index_add_(1, c0, vals * w[:, None])
+            for w in (cw0, cw1)]
+    # A column's second tap by its first (the same for every ray).
+    first = torch.arange(n_col, device=vals.device)
+    second = first.clone()
+    second[c0] = ci1.long()
+    one_c = second == first
+    one_r = ri1 == ri0
+    for row, w, skip_r in ((ri0.long(), rw0, torch.zeros_like(one_r)),
+                           (ri1.long(), rw1, one_r)):
+        for col, ssum, skip_c in ((first, sums[0], torch.zeros_like(one_c)),
+                                  (second, sums[1], one_c)):
+            drop = (skip_r[:, None] | skip_c[None, :])[..., None]
+            val = torch.where(drop, 0.0, w[:, None, None] * ssum)
+            g_plane.index_add_(0, (row[:, None] + col[None, :]).reshape(-1),
+                               val.reshape(-1, C))
+
+
+def _scan_planes_grad_chunked_torch(vol_p: Tensor, light_p: Tensor,
+                                    tf: TransferFunction, c: ScanConstants,
+                                    u: Tensor, v: Tensor, ambient: float,
+                                    out: Tensor, grad_out: Tensor,
+                                    budget: int | None = None):
+    """The backward kernels' plain version, chunk by chunk as
+    ``kernels/sweep_scan._backward`` launches them (``budget`` bytes of
+    ``sweep_scan.grad_plane_bytes`` a plane, ``sweep_scan.PLANE_BUDGET``
+    by default): per chunk the prepared planes
+    (``sweep_scan._prepare_planes_torch``), each plane's fetch by the
+    kernels' taps, the recurrence of :func:`_scan_planes_grad_torch` with
+    each ray's colour and transmittance carried from chunk to chunk, the
+    cotangents scattered per row into the chunk's gradient planes
+    (:func:`_row_scatter_torch`), the transfer function's sums of the chunk
+    flushed at its end, and the fold (:func:`_fold_plane_grads_torch`).
+    Returns (d vol_p, d light_p, d tf.positions, d tf.colors)."""
+    nc, nb = vol_p.shape[1:]
+    nc2, nb2 = light_p.shape[1:3]
+    V, U = v.shape[0], u.shape[0]
+    sbi, dl = c.sbi, c.dl
+    plan = sweep_scan.chunk_plan(
+        c.fz.shape[0], sweep_scan.grad_plane_bytes(nc, nb, nc2, nb2, U, V),
+        sweep_scan.PLANE_BUDGET if budget is None else budget)
+    p, cols = tf.positions.detach(), tf.colors.detach()
+    g_vol, g_light = torch.zeros_like(vol_p), torch.zeros_like(light_p)
+    g_pos, g_cols = torch.zeros_like(p), torch.zeros_like(cols)
+    big_c, g_rgb = out[..., :3], grad_out[..., :3]
+    g_final = grad_out[..., 3] * (1.0 - out[..., 3])
+    rgb = torch.zeros((V, U, 3), dtype=torch.float32, device=u.device)
+    trans = torch.ones((V, U), dtype=torch.float32, device=u.device)
+    for lo, hi in plan:
+        planes = sweep_scan._prepare_planes_torch(vol_p, light_p, c, u, v,
+                                                  lo, hi)
+        g_p_vol = vol_p.new_zeros((hi - lo, nc * nb, 1))
+        g_p_light = light_p.new_zeros((hi - lo, nc2 * nb2, 3))
+        run_pos, run_cols = torch.zeros_like(p), torch.zeros_like(cols)
+        for kl in range(hi - lo):
+            field, light, mask = _fetch_plane_torch(planes, kl)
+            rgba = tf.sample(field).detach()
+            tau = ((rgba[..., 3] * sbi) * dl) * mask
+            seg_t = torch.exp(-tau)
+            weight = trans * (1.0 - seg_t)
+            emit = rgba[..., :3] * (light + ambient)
+            rgb = rgb + weight[..., None] * emit
+            g_tau = (g_rgb * ((trans * seg_t)[..., None] * emit
+                              - (big_c - rgb))).sum(-1) + g_final
+            trans = trans * seg_t
+            g_emit = g_rgb * weight[..., None]
+            g_rgba = torch.cat([g_emit * (light + ambient),
+                                (((g_tau * mask) * dl) * sbi)[..., None]],
+                               dim=-1)
+            g_x, gp, gc = _tf_sample_grad(p, cols, field, g_rgba)
+            run_pos += gp
+            run_cols += gc
+            ri, ci = planes.row_i[kl], planes.col_i[kl]
+            rw, cw = planes.row_w[kl], planes.col_w[kl]
+            _row_scatter_torch(g_p_vol[kl], ri[:, 0], ri[:, 1], ci[:, 0],
+                               ci[:, 1], rw[:, 0], rw[:, 1], cw[:, 0],
+                               cw[:, 1], g_x[..., None], nb)
+            _row_scatter_torch(g_p_light[kl], ri[:, 2], ri[:, 3], ci[:, 2],
+                               ci[:, 3], rw[:, 2], rw[:, 3], cw[:, 2],
+                               cw[:, 3], g_emit * rgba[..., :3], nb2)
+        g_pos += run_pos
+        g_cols += run_cols
+        _fold_plane_grads_torch(g_vol, g_light,
+                                g_p_vol.view(hi - lo, nc, nb),
+                                g_p_light.view(hi - lo, nc2, nb2, 3), c, lo,
+                                hi)
     return g_vol, g_light, g_pos, g_cols
 
 

@@ -35,8 +35,10 @@ planes) and tests/test_torch_grad.py (a 12^2 image at sampling rate 1.5):
 - on the card (marked ``cuda``): each kernel against its plain version,
   the forward also on volumes with +inf texels, NaN equal, both at 17, 64
   and 256 TF points; the pre-pass bit for bit; a forward in four chunks
-  bit for bit against one chunk; the backward with its TF table in device
-  memory.
+  bit for bit against one chunk; the backward (pre-pass, gradient march
+  and fold, one launch of each a chunk) with its TF table in device
+  memory, in four chunks against one chunk, and its fold bit for bit
+  against the fold's plain version on the gradient march's own planes.
 
 Tolerances: values to rtol 1e-5; gradients to rtol 1e-4 with an absolute
 floor of 1e-5 of the largest component (float32 sums in another order:
@@ -870,16 +872,23 @@ def test_backward_kernel_matches_plain_on_the_card(card, case):
     out = tsw._scan_planes(leaves[0], leaves[1], tf_g, sched, u, v, 0.05)
     w = torch.from_numpy(np.random.default_rng(4).uniform(
         0.5, 1.5, out.shape).astype(np.float32)).to(card)
-    before = ss.sweep_scan_backward.launches
+    before = _grad_launches()
     got = torch.autograd.grad((out * w).sum(), leaves)
     torch.cuda.synchronize()
-    assert ss.sweep_scan_backward.launches == before + 1
+    assert _grad_launches(before) == (1, 1, 1)
     c = tsw.scan_constants(vol_p, light_p, sched, u, v)
     want = tsw._scan_planes_grad_torch(vol_p, light_p, tf, c, u, v, 0.05,
                                        out.detach(), w)
     for name, g, wg in zip(("volume", "light volume", "tf positions",
                             "tf colours"), got, want):
         _close(g, wg, CARD_GRAD_RTOL, CARD_GRAD_ATOL_REL, f"{case}: {name}")
+
+
+def _grad_launches(before=(0, 0, 0)) -> tuple:
+    """The pre-pass, gradient-march and fold launches since ``before``."""
+    now = (ss.sweep_planes.launches, ss.sweep_scan_backward.launches,
+           ss.sweep_fold.launches)
+    return tuple(n - b for n, b in zip(now, before))
 
 
 MANY_POINTS = (17, 64, 256)
@@ -911,10 +920,10 @@ def test_backward_kernel_matches_plain_at_many_tf_points_on_the_card(
     out = tsw._scan_planes(leaves[0], leaves[1], tf_g, sched, u, v, 0.05)
     w = torch.from_numpy(np.random.default_rng(4).uniform(
         0.5, 1.5, out.shape).astype(np.float32)).to(card)
-    before = ss.sweep_scan_backward.launches
+    before = _grad_launches()
     got = torch.autograd.grad((out * w).sum(), leaves)
     torch.cuda.synchronize()
-    assert ss.sweep_scan_backward.launches == before + 1
+    assert _grad_launches(before) == (1, 1, 1)
     c = tsw.scan_constants(vol_p, light_p, sched, u, v)
     want = tsw._scan_planes_grad_torch(vol_p, light_p, tf, c, u, v, 0.05,
                                        out.detach(), w)
@@ -989,3 +998,71 @@ def test_plane_prepass_kernel_equals_its_plain_version_on_the_card(
         for name, g, w in zip(ss.Planes._fields, got, want):
             assert torch.equal(g.nan_to_num(), w.nan_to_num()), name
             assert torch.equal(torch.isnan(g), torch.isnan(w)), name
+
+
+def _card_grad_inputs(card, case):
+    """``case``'s scan on the card with its constants, the forward's image
+    and a seeded cotangent of it."""
+    vol_p, light_p, tf, sched, u, v = _scan_inputs(device=card,
+                                                   **CARD_KW[case])
+    u = u.contiguous()
+    c = tsw.scan_constants(vol_p, light_p, sched, u, v)
+    out = ss.sweep_scan_forward(vol_p, light_p, tf.positions, tf.colors, c,
+                                u, v, 0.05)
+    w = torch.from_numpy(np.random.default_rng(4).uniform(
+        0.5, 1.5, out.shape).astype(np.float32)).to(card)
+    return (vol_p, light_p, tf.positions, tf.colors, c, u, v, 0.05, out, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CARD_KW))
+def test_backward_in_chunks_matches_one_chunk_on_the_card(card, case,
+                                                         monkeypatch):
+    """A plane budget of 10 planes of the backward: 4 chunks (4 pre-pass,
+    4 gradient-march and 4 fold launches), each ray's colour and
+    transmittance carried through the scratch; within the backward's
+    tolerance of the one-chunk backward (the transfer function's sums
+    are flushed per chunk, and atomics reorder every sum)."""
+    args = _card_grad_inputs(card, case)
+    one = ss.sweep_scan_backward(*args)
+    vol_p, light_p, _, _, _, u, v = args[:7]
+    per = ss.grad_plane_bytes(*vol_p.shape[1:], *light_p.shape[1:3],
+                              u.shape[0], v.shape[0])
+    monkeypatch.setattr(ss, "PLANE_BUDGET", 10 * per)
+    before = _grad_launches()
+    chunked = ss.sweep_scan_backward(*args)
+    torch.cuda.synchronize()
+    assert _grad_launches(before) == (4, 4, 4)
+    for name, g, wg in zip(("volume", "light volume", "tf positions",
+                            "tf colours"), chunked, one):
+        _close(g, wg, CARD_GRAD_RTOL, CARD_GRAD_ATOL_REL,
+               f"{case}, 4 chunks: {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CARD_KW))
+def test_fold_kernel_equals_its_plain_version_on_the_card(card, case):
+    """The gradient planes that a one-chunk backward's gradient march left
+    in its scratch, folded by ``_fold_plane_grads_torch`` on the CPU: bit
+    for bit the gradients of the volume and the light volume that the fold
+    kernel made of them (a gather in index_add_'s order)."""
+    args = _card_grad_inputs(card, case)
+    grads, scratch = ss._backward(*args)
+    torch.cuda.synchronize()
+    g_p_vol, g_p_light, (lo, hi) = ss._grad_planes(scratch)
+    assert (lo, hi) == (0, 32)
+    c = _cpu_constants(args[4])
+    vol_p, light_p = args[0].cpu(), args[1].cpu()
+    want = tsw._fold_plane_grads_torch(
+        torch.zeros_like(vol_p), torch.zeros_like(light_p), g_p_vol.cpu(),
+        g_p_light.cpu(), c, lo, hi)
+    assert float(want[0].abs().max()) > 0.0
+    assert float(want[1].abs().max()) > 0.0
+    assert torch.equal(grads[0].cpu(), want[0])
+    assert torch.equal(grads[1].cpu(), want[1])
+
+
+def _cpu_constants(c):
+    """The scan's constants on the CPU."""
+    return c._replace(**{f: t.cpu() for f, t in c._asdict().items()
+                         if isinstance(t, torch.Tensor)})
