@@ -23,8 +23,10 @@ no result, without them. It imports nothing but the port. In order it:
    default and the large shape: device time (the kernels' and memsets' own
    time, summed by name from a ``torch.profiler`` window), event-timed bare
    launches through the C entry points, and the event-timed wrapper, each
-   beside the bound computed from the inputs; and the device time of both
-   at sizes between, which places the wrapper's choice of design;
+   beside the bound computed from the inputs, the binning beside its own
+   (the positions read and its counts, offsets, items and indices written
+   once); and the device time of both at sizes between, which places the
+   wrapper's choice of design;
 5. drives the main path through the user's entry points (``init_state`` ->
    ``full_trace_step`` -> ``render_state``) with every kernel's launch
    count set to 0 before and read after, on a scene built with no
@@ -41,17 +43,26 @@ no result, without them. It imports nothing but the port. In order it:
    frame's own deposits, and on those of traces at photon counts between,
    which is what the wrapper's threshold is held to; times each stage of
    the default frame with CUDA events;
-   Then the trace kernel (``csrc/woodcock_trace.cu``, one launch per
-   trace, one thread per lane): it is held against the wavefront loop
+   Then the trace kernels (``csrc/woodcock_trace.cu``: the majorant
+   grids' pre-pass, three launches a trace, held bit for bit against its
+   plain version ``tracer.majorant_grids_torch`` on every timed list's
+   scene and at 17-, 64- and 256-point TFs, timed beside its bound; and
+   the trace, one launch a trace, a lane a thread, its blocks compacting
+   their live lanes, refilled from a counter above what the card keeps
+   resident): the trace is held against the wavefront loop
    (``method="wavefront"``) lane by lane, bit for bit in at least 99.9%
    of the lanes, with equal statistics and splatted light volumes within
    1e-3 relative L1, on the default frame with each option (float16 at 2
    interactions, no single scattering, ``return_stats``, a 64-slot tape, a
    clip box), in chunks, on one rank's shard of 2 with global lane ids,
    and on a correlated step's retrace of 6,656 lanes with their lane ids
-   (later also on a config 4 retrace and config 3's guided frame); both
-   are timed in turns (wavefront, kernel, kernel, wavefront) with the
-   kernel's device time from ``torch.profiler`` beside its bound; the
+   (later also on a config 4 retrace, config 3's guided frame and the
+   large frame's 4,194,304 lanes); both are timed in turns (wavefront,
+   kernel, kernel, wavefront) with the kernel's device time from
+   ``torch.profiler`` beside its bound (the instructions every flight
+   that goes on issues, counted by pipe from the build's SASS with
+   ``scripts/sass_counts.py``, on the busiest pipe) and its SIMT
+   efficiency; one trace call is broken down under the profiler; the
    host waits of one trace (none) and of one with ``return_stats`` (one)
    are counted in sync debug mode; a packed ``interactive_frame``
    (``pipeline/packed.py``) is counted, held against the same frame
@@ -553,13 +564,32 @@ def splat_bound(pos, pw, r: float, dim) -> dict:
             "nonzero_terms": terms}
 
 
-def check_binning(pos, dim, what: str) -> int:
+def bin_bound(m: int, live: int, nb: int, items: int) -> dict:
+    """The least time of the binning of ``m`` deposit slots (``live`` of
+    them used) into ``nb`` bricks cut into ``items`` work items: the
+    positions read once (12 B a slot) and what it must write once, the
+    counts and the offsets (4 B a brick), the work items (12 B each) and
+    each live deposit's index (4 B), at HBM_BYTES_PER_S. Its three passes
+    move more (``passes_bytes``): the count reads the positions and adds
+    into the counts; the scan reads the counts and writes the offsets and
+    the items; the fill reads the positions again and the offsets, adds
+    into the cursors and writes the indices."""
+    nbytes = 12 * m + 8 * nb + 4 + 12 * items + 4 * live
+    passes = {"count": 12 * m + 4 * nb, "scan": 8 * nb + 4 + 12 * items,
+              "fill": 12 * m + 8 * nb + 4 * live}
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "passes_bytes": passes,
+            "passes_ms": sum(passes.values()) / HBM_BYTES_PER_S * 1e3}
+
+
+def check_binning(pos, dim, what: str) -> tuple:
     """The binning kernels against their plain version: counts and offsets
     equal, every entry of a brick's segment a deposit of that brick, and
     the segments together the live deposits exactly once each. Returns the
     largest difference it saw between the kernels' integers (counts,
-    offsets, sorted segment entries) and the plain version's; raises
-    unless that is 0."""
+    offsets, sorted segment entries) and the plain version's, and the
+    binning's bound (:func:`bin_bound`); raises unless that difference is
+    0."""
     meta, order = sp.bin_deposits(pos, dim)
     torch.cuda.synchronize()
     counts, offsets, want_order = sp.bin_deposits_torch(pos, dim)
@@ -593,10 +623,14 @@ def check_binning(pos, dim, what: str) -> int:
                 want_keys[work[:, 1]], work[:, 0]):
         raise AssertionError(f"{what}: the work items do not cut the "
                              "segments")
+    bound = bin_bound(pos.shape[0], live, nb, n_items)
     print(f"binning vs plain, {what}: {live} live deposits in "
           f"{int((counts > 0).sum())} of {nb} bricks, {n_items} work items: "
-          f"max_abs_err {err}")
-    return err
+          f"max_abs_err {err}; bound {bound['bound_ms']:.4f} ms (bytes: "
+          f"{bound['bytes']} B; its three passes move "
+          f"{sum(bound['passes_bytes'].values())} B, "
+          f"{bound['passes_ms']:.4f} ms)")
+    return err, bound
 
 
 def timed_once(fn):
@@ -655,7 +689,7 @@ def check_kernels(dev, tag) -> dict:
                 got, ref, f"splat {design} vs plain, {what}")
             del got
         del ref
-        res["bin_max_abs_err"] = check_binning(pos, dim, what)
+        res["bin_max_abs_err"], bin_bound_ = check_binning(pos, dim, what)
         reps = shape["reps"]
         if reps:
             res["plain_ms"] = (cuda_ms(lambda: sp.splat_product_torch(
@@ -677,12 +711,14 @@ def check_kernels(dev, tag) -> dict:
                     lambda: sp.bin_deposits(pos, dim), reps),
                 "plain_ms": cuda_ms(
                     lambda: sp.bin_deposits_torch(pos, dim), 2),
-                "bound_ms": (12 * m + 4 * int(
-                    (pos[:, 0] < 1e30).sum())) / HBM_BYTES_PER_S * 1e3}
+                **bin_bound_}
             print(f"binning at {what}: device {res['bin']['ms']:.4f} ms, "
                   f"wrapper {res['bin']['wrapper_ms']:.4f} ms, plain "
                   f"{res['bin']['plain_ms']:.3f} ms, bound "
-                  f"{res['bin']['bound_ms']:.4f} ms (bytes) ({tag})")
+                  f"{res['bin']['bound_ms']:.4f} ms (bytes), "
+                  f"{res['bin']['bound_ms'] / res['bin']['ms']:.1%} of it; "
+                  f"its passes' bytes {res['bin']['passes_ms']:.4f} ms "
+                  f"({tag})")
         results[name] = res
         del pos, pw
     for m in BETWEEN:
@@ -782,13 +818,15 @@ SWEEP_FOLD = ss.sweep_fold
 def reset_counts() -> None:
     torch.cuda.synchronize()
     for fn in (*COUNTED.values(), sp.splat_product_grad_cuda, TRACE,
-               SWEEP_PREP, SWEEP_FWD, SWEEP_BWD, SWEEP_FOLD):
+               wt.trace_grids_cuda, SWEEP_PREP, SWEEP_FWD, SWEEP_BWD,
+               SWEEP_FOLD):
         fn.launches = 0
 
 
 def read_counts() -> dict:
     return {**{name: fn.launches for name, fn in COUNTED.items()},
             "trace_woodcock_cuda": TRACE.launches,
+            "trace_grids": wt.trace_grids_cuda.launches,
             "sweep_planes": SWEEP_PREP.launches,
             "sweep_scan_forward": SWEEP_FWD.launches,
             "sweep_scan_backward": SWEEP_BWD.launches,
@@ -800,15 +838,16 @@ def expect_launches(what: str, launches: dict, designs: list,
                     sweep_grads: int = 0) -> None:
     """Raise unless the splat kernels were launched once for each entry of
     ``designs`` ("direct" or "tiled", with one binning per tiled launch)
-    and no more, the trace kernel ``traces`` times (one trace per splat
-    unless given), the sweep's forward kernels (the plane pre-pass and the
-    march) ``sweeps`` times and its backward's (the pre-pass, the gradient
-    march and the fold) ``sweep_grads`` times: every driven path traces
-    and renders through the kernels."""
+    and no more, the trace kernel and the grids' pre-pass ``traces`` times
+    (one trace per splat unless given), the sweep's forward kernels (the
+    plane pre-pass and the march) ``sweeps`` times and its backward's (the
+    pre-pass, the gradient march and the fold) ``sweep_grads`` times:
+    every driven path traces and renders through the kernels."""
+    traces = len(designs) if traces is None else traces
     want = {"splat_product_direct": designs.count("direct"),
             "splat_product_tiled": designs.count("tiled"),
             "bin_deposits": designs.count("tiled"),
-            "trace_woodcock_cuda": len(designs) if traces is None else traces,
+            "trace_woodcock_cuda": traces, "trace_grids": traces,
             "sweep_planes": sweeps + sweep_grads,
             "sweep_scan_forward": sweeps,
             "sweep_scan_backward": sweep_grads,
@@ -962,22 +1001,285 @@ def traced_by(method: str):
         tracer.trace_photons, tracer.trace_photons_chunked = saved
 
 
-def trace_bound(c, n: int, flights: int, tape: int) -> dict:
+# --- the lists the trace is held and timed on -------------------------------
+
+LARGE_FRAME = dict(vol_dim=256, photons=2048, width=1024,
+                   quadrature_samples=4)
+
+
+def frame_list(state) -> tuple:
+    """A frame's trace list: every light sample of ``state``, the key of
+    its first iteration, the lanes' own numbers (samples, key, None)."""
+    return state.light_samples, rng.fold_in(state.key, 0), None
+
+
+def correlated_edit(scene, state, config) -> tuple:
+    """The transfer-function edit of a correlated step on the default
+    frame: (the edited scene, its importance grid, the step's state)."""
+    edited = edit_tf(scene)
+    grid = step.build_importance_grid(edited, config)
+    return edited, grid, step.step(edited, state, config,
+                                   DirtyFlags(tf=True), grid)
+
+
+def retrace_list(config, grid, state, exclude=None) -> tuple:
+    """The lanes one correlated batch retraces: the budget's most
+    important of ``state``'s photons under ``grid``, none of ``exclude``:
+    (light samples, their lane ids, the selection's indices and valid)."""
+    samples = state.light_samples
+    imp = step.recompute_importance(config, grid, state.photons, samples)
+    indices, valid, _ = select.select_photons_to_recompute(
+        imp, step.recompute_budget(config, samples.n), exclude=exclude)
+    sub, safe = step.selected_samples(samples, indices, valid)
+    return sub, safe, indices, valid
+
+
+def config4_importance(scene, seq, t: float):
+    """Config 4's importance grid of step ``t`` (time_step_importance)."""
+    return tv.time_step_importance(
+        seq.minmax, seq.diff, float(t), scene.tf.positions, scene.tf.colors,
+        tuple(seq.volumes.shape[1:]), seq.cell_size,
+        ImportanceWeights().normalized())
+
+
+def trace_lists(names):
+    """(name, scene, samples, key, tracer config, lane ids) of the trace
+    lists ``names`` names, built as the phases build the lists they time:
+    "default" (the default frame's 65,536 samples), "retrace" (the first
+    correlated batch after the TF edit, 6,656 lanes with their ids, on the
+    edited scene), "config4" (config 4's step 1 retrace, on step 1's
+    volume), "config3" (config 3's guided frame, 65,536 lanes, 256^3) and
+    "large" (the large frame's 4,194,304 lanes, 256^3)."""
+    if "default" in names or "retrace" in names:
+        scene, config = build_frame()
+        state = step.full_trace_step(scene, step.init_state(scene, config),
+                                     config)
+        if "default" in names:
+            yield ("default", scene, *frame_list(state)[:2], config.tracer,
+                   None)
+        if "retrace" in names:
+            edited, grid, _ = correlated_edit(scene, state, config)
+            sub, safe, _, _ = retrace_list(config, grid, state)
+            yield ("retrace", edited, sub, frame_list(state)[1],
+                   config.tracer, safe)
+    if "config4" in names:
+        vols, scene, config = build_config4()
+        seq = tv.VolumeSequence.prepare(vols)
+        state0 = step.full_trace_step(
+            scene, step.init_state(scene, config), config)
+        before = dataclasses.replace(state0, retraced=torch.zeros_like(
+            state0.retraced), n_remaining=0)
+        sub, safe, _, _ = retrace_list(
+            config, config4_importance(scene, seq, 1), before,
+            exclude=before.retraced)
+        yield ("config4", with_volume(scene, seq.volumes[1]), sub,
+               frame_list(before)[1], config.tracer, safe)
+    if "config3" in names:
+        scene, config = build_config3()
+        guided = dataclasses.replace(config, guided_emission=True)
+        grid = step.build_importance_grid(scene, config)
+        state = step.init_state(scene, guided, importance_grid=grid)
+        yield ("config3", scene, *frame_list(state)[:2], guided.tracer, None)
+    if "large" in names:
+        scene, config = build_frame(**LARGE_FRAME)
+        state = step.init_state(scene, config)
+        yield ("large", scene, *frame_list(state)[:2], config.tracer, None)
+
+
+# The card's operation rates, for the trace's and the pre-pass's bounds:
+# 67 TFLOP/s of float32 is 132 SMs x 128 FP32 lanes x 2 (an FMA) x the
+# 1.98 GHz boost clock; these kernels are built with --fmad=false, so a
+# float operation takes one FP32 lane one clock (H100 SXM, published).
+SMS = 132
+SM_CLOCK_HZ = 1.98e9
+FP32_LANE_OPS_PER_S = SMS * 128 * SM_CLOCK_HZ
+
+
+def _sass_counts():
+    spec = importlib.util.spec_from_file_location(
+        "sass_counts", Path(__file__).resolve().parent / "scripts"
+        / "sass_counts.py")
+    sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass)
+    return sass
+
+
+@functools.cache
+def flight_counts() -> dict:
+    """The instructions every flight of the trace kernel that goes on
+    issues, by pipe: ``sass_counts.every_pass`` of the kernel's main loop
+    through its draws (``draws_every_pass``) in this run's build."""
+    sass = _sass_counts()
+    if not os.path.exists(sass.cuobjdump()):
+        raise AssertionError("no cuobjdump beside nvcc: the trace's bound "
+                             "is counted from its SASS")
+    counts = sass.report(wt.build()[0], sass.kernel_names(wt.SOURCE))
+    flight = counts["woodcock_trace_kernel"]["draws_every_pass"]
+    if not flight or flight["issue"] <= 0:
+        raise AssertionError("the trace kernel has no flight loop")
+    return flight
+
+
+def trace_bound(c, n: int, flights: int, lanes_flown: int,
+                tape: int) -> dict:
     """The least time of one trace on the card, the larger of: the bytes
-    it must move (the volume, the majorant and distance grids, the light
+    it must move (the volume, the majorant table (8 B a cell), the light
     samples (44 B), the lane ids (8 B), the deposit slots (32 B each), the
     exits (12 B) and the tape (20 B a slot)) at HBM_BYTES_PER_S, and its
-    operations (the active lane-flights this run's data needs, times
-    ``woodcock_trace.OPS_PER_FLIGHT``) at FP32_FLOP_PER_S."""
-    vol = math.prod(c.shape) * 4 + 2 * c.maj.numel() * 4
+    operations: the flights that go on (the active lane-flights this run's
+    data needs less each flown lane's last one, which ends before the
+    next flight's draws), times what each issues on every path
+    (:func:`flight_counts`), on the busiest of the SM's pipes at its rate
+    (``sass_counts.clocks``: 64 ALU, 128 FMA, 16 XU operations and 128
+    issue slots a clock an SM) at SMS x SM_CLOCK_HZ. A floor: what only
+    some flights do (the fetch, the transfer functions, an interaction)
+    is left out."""
+    vol = math.prod(c.shape) * 4 + 8 * c.maj.numel()
     nbytes = vol + n * (44 + 8 + 12 + 20 * tape) \
         + c.max_interactions * n * 32
-    ops = flights * wt.OPS_PER_FLIGHT
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
-    return {"bytes": nbytes, "operations": ops,
-            "active_lane_flights": flights,
+    per_flight = flight_counts()
+    pipes = _sass_counts().clocks(per_flight)
+    going_on = flights - lanes_flown
+    pipe_ms = {k: going_on * v / (SMS * SM_CLOCK_HZ) * 1e3
+               for k, v in pipes.items()}
+    busiest = max(pipe_ms, key=pipe_ms.get)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, pipe_ms[busiest] / 1e3
+    return {"bytes": nbytes, "active_lane_flights": flights,
+            "flights_going_on": going_on,
+            "per_flight": {k: per_flight[k] for k in
+                           ("alu", "fma", "imad", "xu", "mem", "control",
+                            "other", "issue")},
+            "pipe_ms": pipe_ms, "busiest_pipe": busiest,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# --- the grids' pre-pass ----------------------------------------------------
+
+GRIDS = wt.trace_grids_cuda  # the pre-pass's wrapper, one count a call
+RECORDS["grids"] = {"trace_grids_minmax_kernel": 1,
+                    "trace_grids_majorant_kernel": 1,
+                    "trace_grids_distance_kernel": 1}
+GRID_OPS_PER_VOXEL = 2  # its min and its max
+
+
+def bits_differ(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Elements whose bits differ (NaN equal to NaN)."""
+    g, w = got.contiguous(), want.contiguous()
+    same = (g.view(torch.int32) == w.view(torch.int32)) | (
+        torch.isnan(g) & torch.isnan(w))
+    return int((~same).sum())
+
+
+def grids_bound(volume, maj, tf, tcfg) -> dict:
+    """The least time of the grids' pre-pass: the volume read once, the
+    (majorant, distance) table and the largest majorant written once, at
+    HBM_BYTES_PER_S, against its float operations (a min and a max a
+    voxel; a cell's dilation window twice, its two TF evaluations and a
+    compare pair a TF point) at FP32_LANE_OPS_PER_S."""
+    cells = maj.numel()
+    voxels = volume.data.numel()
+    nbytes = 4 * voxels + 8 * cells + 4
+    window = (2 * tcfg.block_ring + 1) ** 3
+    p = tf.positions.shape[0]
+    ops = GRID_OPS_PER_VOXEL * voxels + cells * (2 * window + 3 * p + 20)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_LANE_OPS_PER_S
+    return {"bytes": nbytes, "operations": ops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_grids(what: str, volume, tf, tcfg, tag, reps: int = 20) -> dict:
+    """The grids' pre-pass against its plain version
+    (``tracer.majorant_grids_torch``) on the card: majorants, distances
+    and their largest bit for bit, one counted call; its device time
+    (``torch.profiler``, its three kernels), its call and the plain
+    version's, beside its bound."""
+    torch.cuda.synchronize()
+    before = GRIDS.launches
+    got = tracer.majorant_grids(volume, tf, tcfg)
+    torch.cuda.synchronize()
+    if GRIDS.launches != before + 1:
+        raise AssertionError(f"{what}: {GRIDS.launches - before} pre-pass "
+                             "calls")
+    want = tracer.majorant_grids_torch(volume, tf, tcfg)
+    differ = {name: bits_differ(g, w) for name, g, w in zip(
+        ("maj", "dist", "maj_global"), got[:3], want[:3])}
+    nonzero = int((got[0] > 0.0).sum())
+    print(f"grids pre-pass vs its plain version, {what}: "
+          f"{tuple(got[0].shape)} cells ({nonzero} nonzero), elements "
+          f"differing {differ}, largest majorant {float(got[2]):.6g} "
+          f"({tag})")
+    if any(differ.values()) or got[3] != want[3] or GRIDS.launches \
+            != before + 1:
+        raise AssertionError(f"{what}: the pre-pass is not its plain "
+                             "version")
+
+    def run():
+        return tracer.majorant_grids(volume, tf, tcfg)
+
+    dev_ms = device_ms("grids", run, reps, by_name=True)
+    total = sum(dev_ms.values())
+    if total == 0.0:
+        raise AssertionError("torch.profiler showed no device time")
+    call = cuda_ms(run, reps)
+    plain = cuda_ms(lambda: tracer.majorant_grids_torch(volume, tf, tcfg), 3)
+    bound = grids_bound(volume, got[0], tf, tcfg)
+    print(f"grids pre-pass, {what}: device time {total:.4f} ms ("
+          + ", ".join(f"{k.split('_')[2]} {v:.4f}" for k, v in
+                      dev_ms.items())
+          + f"), call {call:.4f} ms, plain version {plain:.3f} ms; bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+          f"{bound['bytes']} B), {bound['bound_ms'] / total:.1%} of it "
+          f"({tag})")
+    return {"cells": list(got[0].shape), "nonzero_cells": nonzero,
+            "elements_differing": differ, "max_abs_err": 0.0,
+            "ms": total, "ms_by_kernel": dev_ms, "call_ms": call,
+            "plain_ms": plain, **bound}
+
+
+def simt_efficiency(c, volume, samples, key, lane_ids) -> dict:
+    """The kernel's SIMT efficiency on one list under the wrapper's launch:
+    its active lane-flights over 32 times the passes its warps made
+    through a flight."""
+    out = wt.trace_woodcock_cuda(
+        c, volume.data.contiguous(), samples.origins.contiguous(),
+        samples.directions.contiguous(), samples.powers.contiguous(),
+        samples.tspan.contiguous(), lane_ids, key, return_stats=True)
+    active = int(out.active_history.sum(dtype=torch.int64))
+    return {"active_lane_flights": active,
+            "warp_flights": int(out.warp_flights[0]),
+            "simt_efficiency": active / (32 * int(out.warp_flights[0]))}
+
+
+def call_breakdown(what: str, fn, tag) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its top-level aten
+    operators, the device records it enqueued (kernels and memsets) by
+    name, their device time, and the host time of the call (CUDA events
+    around it, synchronised)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, host = timed_once(fn)
+    events = prof.events()
+    top = collections.Counter(
+        e.name for e in events if e.device_type == DeviceType.CPU
+        and e.cpu_parent is None and e.name.startswith("aten::"))
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    names = collections.Counter(e.name[:48] for e in device)
+    dev_us = sum(e.time_range.elapsed_us() for e in device)
+    print(f"call breakdown, {what}: {sum(top.values())} top-level aten "
+          f"operators, {len(device)} device records, device time "
+          f"{dev_us / 1e3:.4f} ms, call {host:.4f} ms; operators "
+          f"{dict(top.most_common(10))}; device records "
+          f"{dict(names.most_common(10))} ({tag})")
+    return {"aten_operators": sum(top.values()),
+            "aten_by_name": dict(top), "device_records": len(device),
+            "device_by_name": dict(names), "device_ms": dev_us / 1e3,
+            "call_ms": host}
 
 
 def check_trace(what: str, scene, samples, key, tcfg, dim, tag, *,
@@ -989,7 +1291,9 @@ def check_trace(what: str, scene, samples, key, tcfg, dim, tag, *,
     where asked for, the light volumes splatted from both within
     TRACE_LV_REL_L1, one launch per trace (per chunk). With ``timed``,
     both in turns (TRACE_TURNS, CUDA events around the whole call), the
-    kernel's device time (``torch.profiler``) and its bound."""
+    kernel's device time (``torch.profiler``, two windows), its bound
+    (:func:`trace_bound`), its SIMT efficiency (:func:`simt_efficiency`),
+    and the grids' pre-pass of the list's scene (:func:`check_grids`)."""
     args = (scene.volume, scene.tf, scene.tf_scattering, samples, key, tcfg)
 
     def trace(method, **kw):
@@ -1046,26 +1350,44 @@ def check_trace(what: str, scene, samples, key, tcfg, dim, tag, *,
     if not timed:
         return res
     runs = [(m, cuda_ms(lambda m=m: trace(m), reps=2)) for m in TRACE_TURNS]
-    dev_ms = device_ms("trace", lambda: trace("cuda"), reps=3)
+    windows = [device_ms("trace", lambda: trace("cuda"), reps=3)
+               for _ in range(2)]
+    dev_ms = statistics.median(windows)
     if dev_ms == 0.0:
         raise AssertionError("torch.profiler showed no device time")
     _, stats = trace("cuda", return_stats=True)
     flights = int(stats["active_history"].sum())
     c = tracer.trace_constants(scene.volume, scene.tf, scene.tf_scattering,
                                tcfg)
-    bound = trace_bound(c, n, flights, opts.get("record_events", 0))
+    bound = trace_bound(c, n, flights, int(stats["active_history"][0]),
+                        opts.get("record_events", 0))
+    ids = (lane_ids if lane_ids is not None else torch.arange(
+        n, device=samples.origins.device)).to(torch.int64).contiguous()
+    trace("cuda")
+    shape = TRACE.last_shape
+    simt = simt_efficiency(c, scene.volume, samples, key, ids)
     plain = statistics.median(t for m, t in runs if m == "wavefront")
     call = statistics.median(t for m, t in runs if m == "cuda")
     print(f"trace {what}: in turns " + ", ".join(
         f"{m} {t:.3f} ms" for m, t in runs)
-        + f"; kernel device time {dev_ms:.4f} ms, bound {bound['bound_ms']:.4f}"
-        f" ms ({bound['bound_by']}: {bound['bytes']} B, "
-        f"{bound['active_lane_flights']} active lane-flights, "
-        f"{stats['wavefront_iters']} flights) ({tag})")
+        + f"; kernel device time {dev_ms:.4f} ms (windows "
+        + ", ".join(f"{t:.4f}" for t in windows) + f"; {shape.grid} blocks "
+        f"of {shape.block}, compaction every {shape.compact_every} "
+        f"flights), bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+        f"{bound['bytes']} B; {bound['active_lane_flights']} active "
+        f"lane-flights, {bound['flights_going_on']} going on, "
+        f"{stats['wavefront_iters']} flights; busiest pipe "
+        f"{bound['busiest_pipe']}, by pipe " + ", ".join(
+            f"{k} {v:.4f}" for k, v in bound["pipe_ms"].items())
+        + f" ms), {bound['bound_ms'] / dev_ms:.1%} of it; SIMT efficiency "
+        f"{simt['simt_efficiency']:.3f} ({tag})")
     res.update({"ms": dev_ms, "call_ms": call, "plain_ms": plain,
-                "in_turns": runs, "flights": stats["wavefront_iters"],
+                "in_turns": runs, "launch": shape._asdict(),
+                "device_ms_windows": windows, "simt": simt,
+                "flights": stats["wavefront_iters"],
                 "mean_active_frac": float(stats["mean_active_frac"]),
                 **bound})
+    res["grids"] = check_grids(what, scene.volume, scene.tf, tcfg, tag)
     return res
 
 
@@ -1077,14 +1399,18 @@ def trace_kernel_phase(scene, config, state, dev, tag) -> dict:
     lane ids, with a clip box, in chunks, and on one rank's shard of 2
     with global lane ids; the default frame's and the retrace's times in
     turns with the wavefront; the host waits of one trace (none) and with
-    the statistics (one, the read of the flights); then frames, a
+    the statistics (one, the read of the flights); the grids' pre-pass at
+    transfer functions of 17, 64 and 256 points; one trace call broken
+    down under the profiler (through the kernels, with its grids given,
+    and the plain grids, which every trace built op by op before the
+    pre-pass); then frames, a
     correlated step and a packed interactive frame through the kernel and
-    through the wavefront loop in turns, and the host waits of one
-    interactive frame, each named."""
+    through the wavefront loop in turns, the host waits of one interactive
+    frame, each named, and the trace source's registers and static
+    instructions."""
     t0 = time.perf_counter()
     dim = step.light_volume_shape(config)
-    samples = state.light_samples
-    key = rng.fold_in(state.key, 0)
+    samples, key, _ = frame_list(state)
     tc = config.tracer
     res = {}
     res["default frame"] = check_trace(
@@ -1114,13 +1440,9 @@ def trace_kernel_phase(scene, config, state, dev, tag) -> dict:
 
     # A correlated step's retrace: the first batch after the TF edit (the
     # step's own selection), its lanes' own ids, on the edited scene.
-    edited = edit_tf(scene)
-    grid = step.build_importance_grid(edited, config)
-    first = step.step(edited, state, config, DirtyFlags(tf=True), grid)
+    edited, grid, first = correlated_edit(scene, state, config)
     budget = step.recompute_budget(config, samples.n)
-    imp = step.recompute_importance(config, grid, state.photons, samples)
-    indices, valid, _ = select.select_photons_to_recompute(imp, budget)
-    sub, safe = step.selected_samples(samples, indices, valid)
+    sub, safe, _, _ = retrace_list(config, grid, state)
     if sub.n != RETRACE_LANES:
         raise AssertionError(f"a batch of {sub.n} lanes")
     res["retrace"] = check_trace(
@@ -1141,6 +1463,31 @@ def trace_kernel_phase(scene, config, state, dev, tag) -> dict:
     if sum(waits["trace"].values()) != 0 or sum(
             waits["trace with return_stats"].values()) > 1:
         raise AssertionError("the kernel path waits for the card")
+
+    # The grids' pre-pass at transfer functions of 17, 64 and 256 points.
+    for p in TF_POINTS:
+        res[f"grids, {p}-point TF"] = {"grids": check_grids(
+            f"default frame, a {p}-point TF", scene.volume,
+            many_point_tf(scene.tf, p), tc, tag)}
+
+    # One trace call broken down: through the kernels, with its grids
+    # given (the call's other work), and the plain grids, which every
+    # trace built op by op before the pre-pass.
+    given = tracer.majorant_grids(scene.volume, scene.tf, tc)
+    breakdown = {
+        "trace_photons": call_breakdown(
+            "one trace_photons call, default frame", lambda:
+            tracer.trace_photons(scene.volume, scene.tf, scene.tf_scattering,
+                                 samples, key, tc), tag),
+        "trace_photons, grids given": call_breakdown(
+            "one trace_photons call with its grids given", lambda:
+            tracer.trace_photons(scene.volume, scene.tf, scene.tf_scattering,
+                                 samples, key, tc, grids=given), tag),
+        "majorant_grids_torch": call_breakdown(
+            "the plain grids (majorant_grids_torch, op by op)",
+            lambda: tracer.majorant_grids_torch(
+                scene.volume, scene.tf, tc), tag)}
+    del given
 
     # End to end, kernel against the twin path, in turns.
     packed_state = packed.pack_state(state)
@@ -1199,9 +1546,10 @@ def trace_kernel_phase(scene, config, state, dev, tag) -> dict:
         turns[name] = runs
         print(f"{name} in turns: " + ", ".join(
             f"{m} {t:.3f} ms" for m, t in runs) + f" ({tag})")
+    sass = kernel_sass(wt, tag)
     print(f"the trace kernel phase took {time.perf_counter() - t0:.1f} s")
-    return {"lists": res, "host_waits": {k: dict(v) for k, v in
-                                         waits.items()},
+    return {"lists": res, "breakdown": breakdown, "sass": sass,
+            "host_waits": {k: dict(v) for k, v in waits.items()},
             "interactive_frame": {"launches": launches,
                                   "host_waits": dict(frame_waits),
                                   "correlated_step_host_waits":
@@ -1229,10 +1577,43 @@ def trace_row(phase: dict, main_launches: int, extra: dict) -> dict:
         "lanes_differing": d["lanes_differing"], "ms": d["ms"],
         "plain_ms": d["plain_ms"], "call_ms": d["call_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-        "library_ms": None, "lists": {**phase["lists"], **extra},
+        "library_ms": None, "launch": d["launch"], "simt": d["simt"],
+        "per_flight": d["per_flight"], "pipe_ms": d["pipe_ms"],
+        "lists": {name: {k: v for k, v in r.items() if k != "grids"}
+                  for name, r in {**phase["lists"], **extra}.items()},
+        "breakdown": phase["breakdown"], "sass": phase["sass"],
         "host_waits": phase["host_waits"],
         "interactive_frame": phase["interactive_frame"],
         "end_to_end_in_turns": phase["end_to_end_in_turns"]}
+
+
+def grids_row(phase: dict, by_path: dict, extra: dict) -> dict:
+    """The ``kernels`` row of the grids' pre-pass: its numbers at the
+    default frame, its calls on each driven path (one a trace), and every
+    list it was held and timed at."""
+    lists = {name: r["grids"] for name, r in {**phase["lists"],
+                                              **extra}.items()
+             if "grids" in r}
+    d = lists["default frame"]
+    return {
+        "name": "trace_grids", "route": "cuda",
+        "source": "cpm_tpu_torch/csrc/woodcock_trace.cu",
+        "replaces": "cpm_tpu/ops/tracer.py:165",
+        "replaces_note": "no Pallas kernel: _majorant_grids (:165-176), one "
+                         "jitted XLA program; three launches a call "
+                         "(trace_grids_minmax, _majorant, _distance "
+                         "kernels), counted once",
+        "caller": "trace_photons (every trace), through majorant_grids",
+        "launches": by_path["full_trace_step + render_state (default "
+                            "frame)"],
+        "launches_by_path": by_path, "held_against_plain": True,
+        "max_abs_err": 0.0,
+        "max_abs_err_of": "bits of the majorants, distances and their "
+                          "largest against majorant_grids_torch",
+        "ms": d["ms"], "ms_by_kernel": d["ms_by_kernel"],
+        "call_ms": d["call_ms"], "plain_ms": d["plain_ms"],
+        "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "library_ms": None, "lists": lists}
 
 
 # --- the sweep's plane scan -----------------------------------------------
@@ -1910,25 +2291,24 @@ def many_point_tf(tf, n: int, seed: int = 12):
     return TransferFunction.from_points(pos, cols, device=tf.positions.device)
 
 
-def sweep_sass(tag) -> dict:
-    """Each sweep kernel's registers and the static instructions of its
-    plane loop (``scripts/sass_counts.py`` on the built library), where the
-    toolkit has ``cuobjdump``; the registers are also in the build's
-    ``-Xptxas -v`` report."""
-    spec = importlib.util.spec_from_file_location(
-        "sass_counts", Path(__file__).resolve().parent / "scripts"
-        / "sass_counts.py")
-    sass = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(sass)
+def kernel_sass(mod, tag) -> dict:
+    """Each kernel of ``mod``'s source: its registers and the static
+    instructions of its main loop (``scripts/sass_counts.py`` on the built
+    library), where the toolkit has ``cuobjdump``; the registers are also
+    in the build's ``-Xptxas -v`` report."""
+    sass = _sass_counts()
     if not os.path.exists(sass.cuobjdump()):
-        print(f"SASS of the sweep kernels: not measured, no cuobjdump beside "
+        print(f"SASS of {mod.SOURCE.name}: not measured, no cuobjdump beside "
               f"nvcc ({tag})")
         return {}
-    counts = sass.report(ss.build()[0], sass.kernel_names(ss.SOURCE))
+    counts = sass.report(mod.build()[0], sass.kernel_names(mod.SOURCE))
     for name, c in counts.items():
+        flight = c["draws_every_pass"]
         print(f"SASS of {name}: {c['registers']} registers, {c['loop']} "
               f"instructions in its main loop (loops inside it: "
-              f"{c['inner']}), {c['instructions']} in all ({tag})")
+              f"{c['inner']}), {c['instructions']} in all"
+              + (f"; every pass through its draws issues {flight}"
+                 if flight else "") + f" ({tag})")
     return counts
 
 
@@ -1949,7 +2329,7 @@ def sweep_kernel_phase(scene, config, state, dev, tag) -> dict:
     t0 = time.perf_counter()
     rc, lv = config.render, state.light_volume_accum
     vol, tf, camera = scene.volume, scene.tf, scene.camera
-    res = {"sass": sweep_sass(tag)}
+    res = {"sass": kernel_sass(ss, tag)}
     res["default frame"] = check_sweep(
         "default frame", vol, tf, lv, camera, rc, tag, timed=True)
     inside = Camera.create(eye=(0.5, 0.5, 0.45), center=(0.5, 0.5, 2.0))
@@ -2534,7 +2914,6 @@ def playback_config4(dev, tag) -> dict:
     r = f32_scalar(config.tracer.radius_rel)
     slots = 2 * config.tracer.max_interactions * budget
     design = sp.choose_design(slots, r, dim)
-    weights = ImportanceWeights().normalized()
     print(f"config 4: VolumeSequence.prepare of {tuple(seq.volumes.shape)} "
           f"(min/max {tuple(seq.minmax.shape)}, diff {tuple(seq.diff.shape)}) "
           f"{prep_ms:.1f} ms with the upload; first full_trace_step "
@@ -2542,10 +2921,7 @@ def playback_config4(dev, tag) -> dict:
           f"delta slots a step -> {dim}, design {design} ({tag})")
 
     def grid_at(t):
-        return tv.time_step_importance(
-            seq.minmax, seq.diff, float(t), scene.tf.positions,
-            scene.tf.colors, tuple(seq.volumes.shape[1:]), seq.cell_size,
-            weights)
+        return config4_importance(scene, seq, t)
 
     # 1. Eight steps, one correlated batch each, in turns with a full
     # retrace of the same step.
@@ -2644,12 +3020,11 @@ def playback_config4(dev, tag) -> dict:
 
     # 5. The stages of that step, 3 warm repetitions each, beside a full
     # retrace of the same step.
-    indices, valid, _ = select.select_photons_to_recompute(
-        imp, budget, exclude=before.retraced)
-    sub, safe = step.selected_samples(before.light_samples, indices, valid)
+    sub, safe, indices, valid = retrace_list(config, grid, before,
+                                             exclude=before.retraced)
     scene1 = with_volume(scene, seq.volumes[1])
     old = dataclasses.replace(before.photons, iteration=0, radius_rel=r)
-    key = rng.fold_in(before.key, 0)
+    key = frame_list(before)[1]
 
     def retrace():
         return tracer.trace_photons(
@@ -2800,8 +3175,7 @@ def guided_config3(dev, tag) -> dict:
         pos, pw, state.photons.radius_rel, dim, 50, tag)
     trace_check = check_trace(
         f"config 3 guided frame ({state.light_samples.n} lanes, 256^3)",
-        scene, state.light_samples, rng.fold_in(state.key, 0),
-        guided.tracer, dim, tag, timed=True)
+        scene, *frame_list(state)[:2], guided.tracer, dim, tag, timed=True)
     stages = {
         "build_importance_grid": lambda: step.build_importance_grid(
             scene, config),
@@ -4562,8 +4936,15 @@ def main() -> None:
     # (16,777,216 deposit slots into the same 65^3 grid), a 1024^2 image.
     (scene, config, state, _, large_launches,
      on_frames["large"]) = counted_frame(
-        "large frame", dev, tag, reps=5, vol_dim=256, photons=2048,
-        width=1024, quadrature_samples=4)
+        "large frame", dev, tag, reps=5, **LARGE_FRAME)
+    torch.cuda.empty_cache()
+    # Its trace: a list of 4,194,304 lanes, more than the card keeps
+    # resident, against the wavefront loop and timed.
+    large_trace = check_trace(
+        f"large frame ({state.light_samples.n} lanes x "
+        f"{config.tracer.max_interactions}, 256^3)", scene,
+        *frame_list(state)[:2], config.tracer,
+        step.light_volume_shape(config), tag, timed=True)
     torch.cuda.empty_cache()
     # One correlated update of the large frame: 419,584 of its photons.
     correlated_big = correlated_large(scene, config, state, dev, tag)
@@ -4693,12 +5074,23 @@ def main() -> None:
     rows[0]["trace_stats"] = {"default frame": stats,
                               "config 4 step retrace": playback[
                                   "trace_stats"]}
-    rows.append(trace_row(
-        traced, launches["trace_woodcock_cuda"],
-        {"config 4 step 1 retrace": playback["trace_check"],
-         "config 3 guided frame": guided["trace_check"]}))
+    more_traces = {"config 4 step 1 retrace": playback["trace_check"],
+                   "config 3 guided frame": guided["trace_check"],
+                   "large frame": large_trace}
+    rows.append(trace_row(traced, launches["trace_woodcock_cuda"],
+                          more_traces))
     rows[-1]["config 4 advance_time in turns"] = playback["step_in_turns"]
     rows[-1]["config 1 demo trace"] = demo["trace_stats"]
+    grids = "trace_grids"
+    rows.append(grids_row(traced, {
+        "full_trace_step + render_state (default frame)": launches[grids],
+        "interactive_frame": traced["interactive_frame"]["launches"][grids],
+        "correlated drain + render_state": correlated["launches"][grids],
+        "float16 frame": half["launches"][grids],
+        "config 4 advance_time steps": playback["launches"][grids],
+        "config 3 guided frame": guided["launches"][grids],
+        "large frame": large_launches[grids],
+        "config 1 demo (two runs)": demo["launches"][grids]}, more_traces))
     sweeps = "sweep_scan_forward"
     by_path = {
         "full_trace_step + render_state (default frame)": launches[sweeps],

@@ -12,21 +12,23 @@ loop condition ``any(active) and step < max_steps``. Two forms run it,
 chosen by ``method``, and both read one set of constants
 (:func:`trace_constants`):
 
-- the kernel (``"cuda"``, what ``"auto"`` takes for CUDA tensors):
-  ``csrc/woodcock_trace.cu`` through ``kernels/woodcock_trace.py``, one
-  launch per trace and one thread per lane, each running its own loop
-  while it is active and its step is below K * ceil(max_steps / K);
+- the kernels (``"cuda"``, what ``"auto"`` takes for CUDA tensors):
+  ``csrc/woodcock_trace.cu`` through ``kernels/woodcock_trace.py``, the
+  majorant grids' pre-pass and one trace launch, one thread per lane,
+  each running its own loop while it is active and its step is below
+  K * ceil(max_steps / K);
 - the wavefront loop (``"wavefront"``, what ``"auto"`` takes for CPU
-  tensors), the kernel's plain version: all lanes advance one flight per
-  step as torch operators, with a host test of the loop condition every
-  K flights.
+  tensors) with :func:`majorant_grids_torch`, the kernels' plain
+  versions: all lanes advance one flight per step as torch operators,
+  with a host test of the loop condition every K flights.
 
 The reference's packed brick table and staged lane compaction exist for
 TPU gathers and leave the trajectories unchanged. Their GPU forms: the
 volume is read with eight direct gathers per trilinear fetch, the
 majorant and skip distance a lane carries are read at the brick column's
 voxel quantization, ``grid[floor(clip(p*dim - 0.5)) // cell_size]``, and
-a lane that has ended retires its thread instead of being compacted away.
+a lane that has ended retires its thread; above the lanes the card keeps
+resident, the kernel's blocks pack their live lanes and take new ones.
 
 Options (``TracerConfig``): ``no_single_scattering`` turns each lane's
 first collision into a scatter without a deposit (power divided by the
@@ -92,11 +94,33 @@ class TraceEvents(NamedTuple):
 
 
 def majorant_grids(volume: Volume, tf: TransferFunction,
-                   config: TracerConfig):
+                   config: TracerConfig, method: str = "auto"):
     """(maj, dist, maj_global, cell_min_ext): per-cell majorant opacity
     (times tau_max), the capped empty-space distance map, their global max
     (a 0-d tensor on the volume's device) and the texture extent of one
-    skippable cell, a float32 value (tracer.py:164-176)."""
+    skippable cell, a float32 value (tracer.py:164-176). ``method`` as in
+    :func:`trace_photons`: the kernel form
+    (``kernels/woodcock_trace.trace_grids_cuda``, three launches; ``maj``
+    and ``dist`` are the halves of one interleaved table) for CUDA tensors,
+    :func:`majorant_grids_torch` for any other. Without a majorant grid
+    the grids are one constant cell, no kernel's work."""
+    if _method(method, volume.device) == "wavefront" or \
+            not config.use_majorant_grid:
+        return majorant_grids_torch(volume, tf, config)
+    maj, dist, maj_global = woodcock_trace.trace_grids_cuda(
+        volume.data.contiguous(), tf.positions.detach().contiguous(),
+        tf.colors[:, 3].detach(), config.majorant_cell_size,
+        config.block_ring, config.empty_jump_cap, f32_scalar(config.tau_max))
+    return maj, dist, maj_global, _cell_min_ext(maj)
+
+
+def _cell_min_ext(maj: Tensor) -> float:
+    return float(np.float32(1.0) / np.float32(max(maj.shape)))
+
+
+def majorant_grids_torch(volume: Volume, tf: TransferFunction,
+                         config: TracerConfig):
+    """The plain version of :func:`majorant_grids`, as torch operators."""
     if config.use_majorant_grid:
         maj = majorant_mod.build_majorant_grid(
             volume, tf, config.majorant_cell_size, config.block_ring)
@@ -105,8 +129,7 @@ def majorant_grids(volume: Volume, tf: TransferFunction,
                          device=volume.device)
     maj = maj * f32_scalar(config.tau_max)
     dist = majorant_mod.empty_distance_grid(maj, cap=config.empty_jump_cap)
-    cell_min_ext = float(np.float32(1.0) / np.float32(max(maj.shape)))
-    return maj, dist, torch.amax(maj), cell_min_ext
+    return maj, dist, torch.amax(maj), _cell_min_ext(maj)
 
 
 class TraceConstants(NamedTuple):
@@ -129,10 +152,10 @@ class TraceConstants(NamedTuple):
     phase_type: int
     phase_g: float
     tf_pos: Tensor  # (P,) the transfer function's points
-    tf_opa: Tensor  # (P,) their opacities
+    tf_opa: Tensor  # (P,) their opacities (a column of the colours)
     tfs_pos: Tensor  # (Q,) the scattering transfer function's
     tfs_opa: Tensor  # (Q,)
-    maj: Tensor  # (gz, gy, gx) majorants
+    maj: Tensor  # (gz, gy, gx) majorants (a view of the kernels' table)
     dist: Tensor  # (gz, gy, gx) empty-space distances, in cells
     maj_global: Tensor  # () their max, never read by the host
     max_interactions: int
@@ -143,13 +166,15 @@ class TraceConstants(NamedTuple):
 
 def trace_constants(volume: Volume, tf: TransferFunction,
                     tf_scattering: TransferFunction, config: TracerConfig,
-                    grids: tuple | None = None) -> TraceConstants:
+                    grids: tuple | None = None,
+                    method: str = "auto") -> TraceConstants:
     """The constants of one trace of ``volume`` under ``config``; ``grids``
     takes :func:`majorant_grids`' result where one build serves several
-    traces. Numbers are rounded as the reference's float32 arithmetic
-    rounds them; nothing is uploaded or read back."""
+    traces, else they are built by ``method``. Numbers are rounded as the
+    reference's float32 arithmetic rounds them; nothing is uploaded or
+    read back."""
     if grids is None:
-        grids = majorant_grids(volume, tf, config)
+        grids = majorant_grids(volume, tf, config, method)
     maj, dist, maj_global, cell_min_ext = grids
     shape = tuple(int(s) for s in volume.shape_zyx)
     d_, h_, w_ = shape
@@ -169,10 +194,10 @@ def trace_constants(volume: Volume, tf: TransferFunction,
                  or config.clip_max != (1.0, 1.0, 1.0)),
         phase_type=config.phase_type, phase_g=f32_scalar(config.phase_g),
         tf_pos=tf.positions.detach().contiguous(),
-        tf_opa=tf.colors[:, 3].detach().contiguous(),
+        tf_opa=tf.colors[:, 3].detach(),
         tfs_pos=tf_scattering.positions.detach().contiguous(),
-        tfs_opa=tf_scattering.colors[:, 3].detach().contiguous(),
-        maj=maj.contiguous(), dist=dist.contiguous(), maj_global=maj_global,
+        tfs_opa=tf_scattering.colors[:, 3].detach(),
+        maj=maj, dist=dist, maj_global=maj_global,
         max_interactions=config.max_interactions,
         no_single_scattering=config.no_single_scattering, flights=k,
         step_limit=k * -(-config.max_steps // k))
@@ -232,7 +257,7 @@ def trace_photons(volume: Volume, tf: TransferFunction,
         raise ValueError(f"lane_ids must be ({n},), got "
                          f"{tuple(lane_ids.shape)}")
     key = (int(base_key[0]), int(base_key[1]))
-    c = trace_constants(volume, tf, tf_scattering, config, grids)
+    c = trace_constants(volume, tf, tf_scattering, config, grids, method)
     run = _trace_kernel if method == "cuda" else _trace_wavefront
     (out_pos, out_pow, out_dir, exit_power, exit_dir), extra = run(
         c, volume, light_samples, key, lane_ids, return_stats, record_events)
@@ -512,8 +537,7 @@ def trace_photons_chunked(volume: Volume, tf: TransferFunction,
         return trace_photons(volume, tf, tf_scattering, light_samples,
                              base_key, config, lane_ids=lane_ids,
                              method=method)
-    _method(method, volume.device)
-    grids = majorant_grids(volume, tf, config)
+    grids = majorant_grids(volume, tf, config, method)
     outs = []
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)

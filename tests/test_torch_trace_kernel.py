@@ -12,14 +12,25 @@
 - the premise of the kernel's lane-local loop: a trace in chunks of one
   lane equals the trace in one piece bit for bit, at K = 1, 2, 3 flights
   per test of the loop condition, with a ``max_steps`` that stops lanes;
+  and so does a trace of the lanes in another order, or of any partition
+  of them with their lane ids, which is what the kernel's compaction and
+  refill rest on;
+- the wrapper's pure parts: the launch shape (with a mirror of the
+  kernel's compaction and claims, every lane runs exactly once), the
+  macrocell divisor, the grids' table;
 - on the card (marked ``cuda``): the kernel against the wavefront loop,
-  lane by lane, for every option.
+  lane by lane, for every option, on 1 and 33 lanes, on a grid too
+  small for its list (refill), and with a transfer function of 8192
+  points (past 48 KB of shared memory); the grids' pre-pass against its plain
+  version bit for bit (the cases of :data:`GRID_CASES`, which
+  tests/test_torch_majorant.py also holds against the reference).
 
 The reference is imported inside the tests that use it, so that the card
 tests also run where JAX is not installed (``--noconftest``).
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -214,6 +225,198 @@ def test_one_lane_at_a_time_equals_the_whole_trace(k):
     assert not torch.equal(longer.positions, whole.positions)
 
 
+@pytest.mark.parametrize("order", ["permuted", "partitioned"])
+def test_a_reordered_or_partitioned_trace_equals_the_whole_trace(order):
+    """The lanes traced in a seeded permutation, or as a seeded partition
+    into three traces each with its lanes' ids, give every lane the bits
+    of the trace of all of them in order: a lane's draws depend on its id
+    and its own step only, which is what lets the kernel compact its lanes
+    and refill freed threads in any order."""
+    vol, tf, tfs, ls = _scene((16, 16, 16))
+    cfg = TracerConfig(max_interactions=3, max_steps=40)
+    key = rng.fold_in(rng.prng_key(7), 1)
+    ids = torch.arange(ls.n, dtype=torch.int64) * 5 + 2
+    whole = tracer.trace_photons(vol, tf, tfs, ls, key, cfg, lane_ids=ids)
+    gen = torch.Generator().manual_seed(11)
+
+    def subset(sel):
+        sub = ttypes.LightSamples(
+            origins=ls.origins[sel], directions=ls.directions[sel],
+            powers=ls.powers[sel], tspan=ls.tspan[sel])
+        return tracer.trace_photons(vol, tf, tfs, sub, key, cfg,
+                                    lane_ids=ids[sel])
+
+    if order == "permuted":
+        parts = [torch.randperm(ls.n, generator=gen)]
+    else:
+        part = torch.randint(0, 3, (ls.n,), generator=gen)
+        parts = [torch.nonzero(part == k)[:, 0] for k in range(3)]
+        assert all(len(p) > 10 for p in parts)
+    for sel in parts:
+        got = subset(sel)
+        for f in ("positions", "powers", "directions"):
+            assert torch.equal(getattr(got, f),
+                               getattr(whole, f)[:, sel]), f
+        for f in ("exit_power", "exit_direction"):
+            assert torch.equal(getattr(got, f), getattr(whole, f)[sel]), f
+    assert int((whole.positions[..., 0] < 1e30).sum()) > 20
+
+
+def _run_schedule(shape: wt.LaunchShape, n: int, flights: np.ndarray):
+    """A mirror of the trace kernel's loop over lanes: each block starts
+    with its first lanes; with compaction, every ``compact_every`` flights
+    (blocks taking their turns) it keeps its live lanes and its free
+    threads take the lanes a shared counter hands out past the grid's own,
+    until the counter passes n and the block holds no lane. Returns how
+    many times each lane started."""
+    started = np.zeros(n, np.int64)
+    left = {}  # block -> flights left of each lane it holds
+
+    def start(lane):
+        started[lane] += 1
+        return int(flights[lane])
+
+    for b in range(shape.grid):
+        left[b] = [start(i) for i in range(min(b * shape.block, n),
+                                           min((b + 1) * shape.block, n))]
+    if not shape.compact_every:
+        return started
+    claimed_from = shape.grid * shape.block
+    counter, more = 0, {b: True for b in left}
+    while left:
+        for b in list(left):
+            live = [f - shape.compact_every for f in left[b]
+                    if f - shape.compact_every > 0]
+            free = shape.block - len(live)
+            claim = None
+            if more[b] and free:
+                got, counter = counter, counter + free
+                if got < n - claimed_from:
+                    claim = got
+                else:
+                    more[b] = False
+            if claim is not None:
+                lanes = range(claimed_from + claim,
+                              min(claimed_from + claim + free, n))
+                live += [start(i) for i in lanes]
+            if not live and claim is None:
+                del left[b]
+            else:
+                left[b] = live
+    return started
+
+
+@pytest.mark.parametrize("n,sms,per_sm,k", [
+    (1, 132, 8, 8), (33, 132, 8, 8), (6656, 132, 8, 8), (65536, 132, 8, 8),
+    (300000, 132, 8, 0), (300000, 132, 8, 8), (5000, 4, 2, 2),
+    (70001, 4, 3, 1)])
+def test_launch_shape_runs_every_lane_once(n, sms, per_sm, k, monkeypatch):
+    """The launch of a list: the widest block that gives every SM a block;
+    compaction (and claims) only in blocks wider than a warp and where the
+    list needs more blocks than the card keeps resident, which is then the
+    grid; and every lane started exactly once, by its block or by a
+    claim."""
+    monkeypatch.setattr(wt, "COMPACT_EVERY", k)
+    shape = wt.launch_shape(n, sms, lambda block: per_sm)
+    blocks = -(-n // shape.block)
+    assert shape.block in wt.BLOCKS
+    assert blocks >= sms or shape.block == wt.BLOCKS[-1]
+    if shape.block == 32 or k == 0 or blocks <= sms * per_sm:
+        assert shape.compact_every == 0 and shape.grid == blocks
+    else:
+        assert shape.compact_every == k and shape.grid == sms * per_sm
+    flights = np.random.default_rng(n).integers(0, 60, n)
+    assert (_run_schedule(shape, n, flights) == 1).all()
+
+
+def test_cell_divisor_gives_the_quotient():
+    """The kernel's macrocell index: a shift for a power of two, else the
+    high word of v times ceil(2^32 / cell), equal to v // cell for every
+    voxel index of a volume the wrapper takes."""
+    for cell in range(1, 70):
+        shift, mul = wt._cell_divisor(cell, (4096, 17, 9))
+        v = np.concatenate([np.arange(5000), np.arange(4096 - 300, 4096)])
+        got = v >> shift if shift >= 0 else (v * mul) >> 32
+        assert (got == v // cell).all(), cell
+        assert (shift >= 0) == (cell & (cell - 1) == 0)
+    with pytest.raises(ValueError):
+        wt._cell_divisor(3, (2 ** 31, 1, 1))
+
+
+def test_the_kernels_table_of_the_grids():
+    """The kernel reads one (gz, gy, gx, 2) table: the pre-pass's own where
+    the grids are its halves, else the two grids stacked."""
+    table = torch.arange(2 * 3 * 4 * 5, dtype=torch.float32).reshape(
+        3, 4, 5, 2)
+    assert wt._table(table[..., 0], table[..., 1]).data_ptr() == \
+        table.data_ptr()
+    maj, dist = table[..., 0].contiguous(), table[..., 1].contiguous()
+    assert torch.equal(wt._table(maj, dist), table)
+
+
+# --- the grids' cases ----------------------------------------------------------
+
+# Volumes and transfer functions the grids are held at: the default frame's
+# 128^3 volume, partial last cells (sides 20, 13, 9), a cell of 3 voxels,
+# rings 1 and 2, caps 0, 1 and 6, transfer functions of 4, 17, 64, 256 and
+# 8192 points (past 48 KB of shared memory a block, where the kernel opts
+# in to more), and volumes that are empty and full everywhere.
+GRID_CASES = {
+    "default_frame_128": dict(shape=(128, 128, 128), tf=4, cell=8, ring=1,
+                              cap=6),
+    "partial_cells_20": dict(shape=(20, 20, 20), tf=4, cell=8, ring=1,
+                             cap=6),
+    "ring2_cap1_tf17": dict(shape=(32, 24, 40), tf=17, cell=4, ring=2,
+                            cap=1),
+    "cap0_tf64": dict(shape=(40, 32, 24), tf=64, cell=8, ring=1, cap=0),
+    "cell3_partial_tf17": dict(shape=(20, 13, 9), tf=17, cell=3, ring=1,
+                               cap=6),
+    "tf256_ring2": dict(shape=(64, 48, 56), tf=256, cell=8, ring=2, cap=6),
+    "tf8192": dict(shape=(16, 24, 16), tf=8192, cell=8, ring=1, cap=6),
+    "all_empty": dict(shape=(32, 32, 32), fill=0.0, tf=4, cell=8, ring=1,
+                      cap=6),
+    "all_full": dict(shape=(32, 32, 32), fill=0.7, tf=4, cell=8, ring=1,
+                     cap=6),
+    "nan_voxels": dict(shape=(24, 24, 24), nans=5, tf=4, cell=8, ring=1,
+                       cap=6),
+}
+
+
+def tf_of(points: int):
+    """The default transfer function (4 points) or a seeded one of
+    ``points``: sorted positions over [0, 1], colours in [0, 1], opacities
+    in [0, 0.6] with a fifth of them 0."""
+    if points == 4:
+        return synthetic.default_tf_points()
+    rs = np.random.default_rng(points)
+    pos = np.sort(rs.uniform(0.0, 1.0, points)).astype(np.float32)
+    pos[0], pos[-1] = 0.0, 1.0
+    cols = rs.uniform(0.0, 1.0, (points, 4)).astype(np.float32)
+    cols[:, 3] *= 0.6
+    cols[rs.random(points) < 0.2, 3] = 0.0
+    return pos, cols
+
+
+def grid_case(name: str, device: str):
+    """(volume data as numpy, Volume, TransferFunction, TracerConfig) of a
+    case of :data:`GRID_CASES`."""
+    kw = GRID_CASES[name]
+    d, h, w = kw["shape"]
+    if "fill" in kw:
+        data = np.full(kw["shape"], kw["fill"], np.float32)
+    else:
+        data = np.ascontiguousarray(
+            synthetic.smoke_cloud(max(kw["shape"]), seed=3)[:d, :h, :w])
+        rs = np.random.default_rng(1)
+        for _ in range(kw.get("nans", 0)):
+            data[tuple(rs.integers(0, s) for s in data.shape)] = np.nan
+    vol = ttypes.Volume.from_data(data, device=device)
+    tf = ttypes.TransferFunction.from_points(*tf_of(kw["tf"]), device=device)
+    cfg = TracerConfig(majorant_cell_size=kw["cell"], block_ring=kw["ring"],
+                       empty_jump_cap=kw["cap"], tau_max=1.25)
+    return data, vol, tf, cfg
+
+
 # --- on the card -------------------------------------------------------------
 
 # At most this share of lanes may differ from the plain version on the card
@@ -234,6 +437,20 @@ CARD_CASES = {
                             max_steps=20, flights_per_iteration=3),
                        dict(return_stats=True)),
     "chunked": (dict(trace_chunk=10000), dict()),
+    "one_lane": (dict(), dict(lanes=1)),
+    "33_lanes": (dict(), dict(lanes=33)),
+    # A grid too small for the list: its threads take the lanes past it
+    # from the counter (block, grid, flights between compactions).
+    "refill_stats": (dict(), dict(return_stats=True, shape=(128, 8, 4))),
+    "refill_tape_k2": (dict(), dict(record_events=64, shape=(64, 5, 2))),
+    "no_compaction": (dict(), dict(return_stats=True, shape=(128, 512, 0))),
+    # A transfer function of 8192 points: past 48 KB of shared memory a
+    # block, with the staging area of a compaction too; few flights, since
+    # the wavefront evaluates every segment.
+    "tf8192_points": (dict(max_steps=6, flights_per_iteration=2),
+                      dict(tf_points=8192)),
+    "tf8192_points_refill": (dict(max_steps=6, flights_per_iteration=2),
+                             dict(tf_points=8192, shape=(256, 8, 4))),
 }
 
 
@@ -250,7 +467,8 @@ def card_frame():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CARD_CASES))
-def test_kernel_matches_the_wavefront_on_the_card(card_frame, case):
+def test_kernel_matches_the_wavefront_on_the_card(card_frame, case,
+                                                  monkeypatch):
     """The default frame (65,536 lanes, 128^3) through the kernel and the
     wavefront loop, lane by lane: at most MAX_LANES_DIFFER of the lanes
     may differ in any bit of a deposit, the exits or the tape; the
@@ -258,8 +476,19 @@ def test_kernel_matches_the_wavefront_on_the_card(card_frame, case):
     import chip_smoke
     scene, config, state = card_frame
     tkw, opts = CARD_CASES[case]
+    opts = dict(opts)
     cfg = dataclasses.replace(config.tracer, **tkw)
-    samples, ids = state.light_samples, None
+    samples, ids, tf = state.light_samples, None, scene.tf
+    if "tf_points" in opts:
+        tf = chip_smoke.many_point_tf(tf, opts.pop("tf_points"))
+    if "lanes" in opts:
+        k = opts.pop("lanes")
+        samples = ttypes.LightSamples(
+            origins=samples.origins[:k], directions=samples.directions[:k],
+            powers=samples.powers[:k], tspan=samples.tspan[:k])
+    if "shape" in opts:
+        shape = wt.LaunchShape(*opts.pop("shape"))
+        monkeypatch.setattr(wt, "launch_shape", lambda n, sms, per_sm: shape)
     if "retrace" in opts:
         gen = torch.Generator().manual_seed(3)
         ids = torch.randperm(samples.n, generator=gen)[:opts.pop("retrace")]
@@ -268,7 +497,7 @@ def test_kernel_matches_the_wavefront_on_the_card(card_frame, case):
             origins=samples.origins[ids], directions=samples.directions[ids],
             powers=samples.powers[ids], tspan=samples.tspan[ids])
     key = rng.fold_in(state.key, 0)
-    args = (scene.volume, scene.tf, scene.tf_scattering, samples, key, cfg)
+    args = (scene.volume, tf, scene.tf_scattering, samples, key, cfg)
 
     def run(method):
         if cfg.trace_chunk:
@@ -290,7 +519,8 @@ def test_kernel_matches_the_wavefront_on_the_card(card_frame, case):
     assert float(differ.float().mean()) <= MAX_LANES_DIFFER
     photons = got[0] if isinstance(got, tuple) else got
     assert photons.positions.dtype == getattr(torch, cfg.photon_dtype)
-    assert int((photons.positions[..., 0].float() < 1e30).sum()) > 1000
+    if samples.n > 1000:
+        assert int((photons.positions[..., 0].float() < 1e30).sum()) > 1000
     if opts.get("return_stats"):
         g, w = got[1], want[1]
         assert g["wavefront_iters"] == w["wavefront_iters"]
@@ -299,3 +529,32 @@ def test_kernel_matches_the_wavefront_on_the_card(card_frame, case):
         assert g["stage_widths"] == w["stage_widths"] == [samples.n]
     if opts.get("record_events"):
         assert torch.equal(got[1].counts, want[1].counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRID_CASES))
+def test_grids_match_their_plain_version_on_the_card(case):
+    """The grids' pre-pass (three launches, one counted call) against
+    ``majorant_grids_torch`` on the same card: majorants, distances and
+    their largest, bit for bit (NaN where it has NaN); both grids halves
+    of the one table the trace kernel reads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, vol, tf, cfg = grid_case(case, "cuda")
+    before = wt.trace_grids_cuda.launches
+    got = tracer.majorant_grids(vol, tf, cfg)
+    torch.cuda.synchronize()
+    assert wt.trace_grids_cuda.launches == before + 1
+    want = tracer.majorant_grids_torch(vol, tf, cfg)
+    assert wt.trace_grids_cuda.launches == before + 1
+    for g, w, name in zip(got[:3], want[:3], ("maj", "dist", "maj_global")):
+        assert g.shape == w.shape and g.device == w.device, name
+        g, w = g.contiguous(), w.contiguous()
+        same = (g.view(torch.int32) == w.view(torch.int32)) | (
+            torch.isnan(g) & torch.isnan(w))
+        assert bool(same.all()), (name, int((~same).sum()))
+    assert got[3] == want[3]
+    assert wt._table(got[0], got[1]).data_ptr() == got[0].data_ptr()
+    print(f"{case}: grids {tuple(got[0].shape)} equal bit for bit, "
+          f"{int((got[0] > 0).sum())} nonzero cells, max "
+          f"{float(got[2]):.6g}")
