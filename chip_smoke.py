@@ -159,10 +159,15 @@ no result, without them. It imports nothing but the port. In order it:
    rendered after the TF edit, its full estimator with respect to the TF
    colours on the card against the CPU's from the same photons and tape
    (1e-3); the stages timed, one gradient profiled, peak memory; the
-   backward kernel against its plain version and the adjoint identity on
-   the frame's deposits and a correlated step's delta list, timed beside
-   its bound; and ``examples/fit_tf_torch.py`` on the card (12 steps,
-   within 20% of theta, counted);
+   backward kernel (one thread a slot, a block's cell centres divided
+   once into shared memory) with its registers and loop instructions,
+   against its plain version (every unused slot 0, two launches
+   bit-equal) and the adjoint identity on the frame's deposits and a
+   correlated step's delta list, timed beside its bound (later also on
+   config 3's guided frame's and the large frame's deposits, which no
+   driven gradient reaches: reported in the row's ``by_list``); and
+   ``examples/fit_tf_torch.py`` on the card (12 steps, within 20% of
+   theta, counted);
 7. runs one ``correlated_step_scalable`` at the large frame (budget
    419,584), counted, and times both designs on its deposits;
 8. drives BASELINE config 4 at full width (bench.py:343-446: a 128^3 x
@@ -3173,6 +3178,8 @@ def guided_config3(dev, tag) -> dict:
     on_frame, _ = check_on_list(
         f"the {pos.shape[0]} deposit slots of the config 3 guided frame",
         pos, pw, state.photons.radius_rel, dim, 50, tag)
+    on_grad = check_backward("the config 3 guided frame's deposits", pos,
+                             pw, state.photons.radius_rel, dim, 32, tag)
     trace_check = check_trace(
         f"config 3 guided frame ({state.light_samples.n} lanes, 256^3)",
         scene, *frame_list(state)[:2], guided.tracer, dim, tag, timed=True)
@@ -3259,6 +3266,7 @@ def guided_config3(dev, tag) -> dict:
     del pilot, st, state, grid
     torch.cuda.empty_cache()
     return {"launches": frame_launches, "on_frame": on_frame,
+            "on_grad": on_grad,
             "stage_ms": stage_ms, "variance_uniform": var_u,
             "variance_guided": var_g, "bias": bias, "tick_ms": tick_ms,
             "debug_image_ms": image_ms, "trace_check": trace_check,
@@ -3916,22 +3924,54 @@ def grad_bound(pos, r: float, dim) -> dict:
             "bytes": byts, "flop": flop}
 
 
-def check_backward(what: str, pos, pw, r: float, dim, seed: int,
-                   tag) -> dict:
+def grad_sass(tag) -> dict:
+    """The backward kernel's three instantiations (windows of 5, 8 and any
+    width): registers and the static instructions of the main loop
+    (``scripts/sass_counts.py``), beside the bound and not folded into it:
+    they count one implementation, the bound the data's work."""
+    sass = _sass_counts()
+    if not os.path.exists(sass.cuobjdump()):
+        print(f"SASS of splat_grad_kernel: not measured, no cuobjdump "
+              f"beside nvcc ({tag})")
+        return {}
+    names = {f"splat_grad_kernelILi{w}E": f"W={w}" for w in (5, 8, 0)}
+    counts = sass.report(sp.build()[0], list(names))
+    out = {names[n]: {"registers": c["registers"], "loop": c["loop"],
+                      "inner": c["inner"], "instructions": c["instructions"]}
+           for n, c in counts.items()}
+    print("SASS of splat_grad_kernel: " + "; ".join(
+        f"{w}: {c['registers']} registers, {c['loop']} instructions in its "
+        f"main loop (loops inside it: {c['inner']}), {c['instructions']} in "
+        "all" for w, c in sorted(out.items())) + f" ({tag})")
+    return out
+
+
+def check_backward(what: str, pos, pw, r: float, dim, seed: int, tag,
+                   reps: int = 50) -> dict:
     """The backward kernel against its plain version on one deposit list
     with a seeded grid gradient (rtol 1e-4, atol 1e-6 of the largest
-    value), the adjoint identity <splat(P), G> = <P, splat^T(G)>, and its
-    device time beside the bound, the plain version's and the bare
-    kernel's (event-timed through the C entry point)."""
+    value, every unused slot 0, two launches bit-equal and counted one
+    each), the adjoint identity <splat(P), G> = <P, splat^T(G)>, and its
+    device time beside the bound, the plain version's, the wrapper's and
+    the bare kernel's (event-timed through the C entry point)."""
     rs = np.random.default_rng(seed)
     g = torch.from_numpy(rs.standard_normal((*dim, 3)).astype(np.float32)
                          ).to(pos.device)
+    before = sp.splat_product_grad_cuda.launches
     got = sp.splat_product_grad(pos, g, r, dim)
+    again = sp.splat_product_grad(pos, g, r, dim)
     torch.cuda.synchronize()
+    if sp.splat_product_grad_cuda.launches != before + 2:
+        raise AssertionError(f"{what}: two backward calls counted "
+                             f"{sp.splat_product_grad_cuda.launches - before}"
+                             " launches")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two launches of the backward differ")
     ref = sp.splat_product_grad_torch(pos, g, r, dim)
     err = compare(got, ref, f"splat backward kernel vs plain on {what}")
     if bool((got[pos[:, 0] >= 1e30] != 0.0).any()):
         raise AssertionError(f"{what}: an unused slot got a gradient")
+    del ref, again
     fwd = sp.splat_product(pos, pw, r, dim)
     lhs = float((fwd.double() * g.double()).sum())
     rhs = float((pw.double() * got.double()).sum())
@@ -3942,6 +3982,7 @@ def check_backward(what: str, pos, pw, r: float, dim, seed: int,
     if adjoint > ADJOINT_RTOL:
         raise AssertionError(f"{what}: the backward is not the forward's "
                              "adjoint")
+    del fwd, got
     lib = sp._library()
     out = torch.empty_like(pw)
     inv_r = float(sp.inverse_radius(r))
@@ -3954,17 +3995,18 @@ def check_backward(what: str, pos, pw, r: float, dim, seed: int,
             raise RuntimeError("splat backward kernel failed")
 
     runs = [device_ms("grad", lambda: sp.splat_product_grad(pos, g, r, dim),
-                      50) for _ in range(2)]
+                      reps) for _ in range(2)]
     if min(runs) == 0.0:
         raise AssertionError("torch.profiler showed no device time")
     bound = grad_bound(pos, r, dim)
     res = {"deposits": pos.shape[0], "live": int((pos[:, 0] < 1e30).sum()),
            "max_abs_err": err, "adjoint_rel": adjoint, "ms_runs": runs,
-           "ms": statistics.median(runs), "bare_ms": cuda_ms(bare, 200),
+           "ms": statistics.median(runs), "bare_ms": cuda_ms(bare, 4 * reps),
            "wrapper_ms": cuda_ms(
-               lambda: sp.splat_product_grad(pos, g, r, dim), 200),
+               lambda: sp.splat_product_grad(pos, g, r, dim), 4 * reps),
            "plain_ms": cuda_ms(
-               lambda: sp.splat_product_grad_torch(pos, g, r, dim), 3),
+               lambda: sp.splat_product_grad_torch(pos, g, r, dim),
+               1 if pos.shape[0] > 1 << 22 else 3),
            **bound, "library_ms": None}
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
     print(f"splat backward on {what}: {res['deposits']} slots "
@@ -4348,6 +4390,7 @@ def gradients_default(delta_list, dev, tag) -> dict:
     # 6. The backward kernel on the frame's own deposit list and on a
     # correlated step's signed delta list.
     pos, pw = splat.product_deposits(photons)
+    sass = grad_sass(tag)
     on_frame = check_backward("the default frame's deposits", pos, pw, r,
                               dim, 30, tag)
     on_delta = check_backward(
@@ -4369,7 +4412,8 @@ def gradients_default(delta_list, dev, tag) -> dict:
             "whole_gradient_first_run_ms": grad_ms, "stage_ms": times,
             "profile": busy,
             "mse_card_vs_cpu": [mse, mse_cpu], "cpu_s": cpu_s,
-            "on_frame": on_frame, "on_delta": on_delta, "fit": fitted}
+            "on_frame": on_frame, "on_delta": on_delta, "sass": sass,
+            "fit": fitted}
 
 
 # --- multi-device (sharding, multihost) and the config 1 demo ------------
@@ -4803,10 +4847,12 @@ def delta_row(caller: str, shape: str, launches: dict, calls: int,
 def grad_row(grads: dict) -> dict:
     """The ``kernels`` row of the splat's backward: its numbers on the
     default frame's deposits, launches from one ``trajectory_gradients``,
-    the delta list's numbers and the rest of the gradients phase."""
+    its registers, its numbers on every list (``by_list``: the delta list,
+    and config 3's and the large frame's deposits, which no driven
+    gradient reaches) and the rest of the gradients phase."""
     on = grads["on_frame"]
-    rest = {k: v for k, v in grads.items() if k not in ("on_frame",
-                                                         "on_delta")}
+    rest = {k: v for k, v in grads.items() if k not in (
+        "on_frame", "on_delta", "by_list", "sass")}
     return {
         "name": "splat_product_grad_cuda", "route": "cuda",
         "source": "cpm_tpu_torch/csrc/splat_product.cu",
@@ -4826,6 +4872,9 @@ def grad_row(grads: dict) -> dict:
         "bound_ms": on["bound_ms"], "bound_by": on["bound_by"],
         "share_of_bound": on["share_of_bound"], "library_ms": None,
         "deposits": on["deposits"], "live": on["live"],
+        "sass": grads["sass"],
+        "by_list": {"default frame": on, "delta list": grads["on_delta"],
+                    **grads["by_list"]},
         "on_delta_list": grads["on_delta"], "gradients": rest}
 
 
@@ -4946,6 +4995,13 @@ def main() -> None:
         *frame_list(state)[:2], config.tracer,
         step.light_volume_shape(config), tag, timed=True)
     torch.cuda.empty_cache()
+    # The backward kernel on its 16,777,216 slots (no driven gradient runs
+    # there: reported in the kernels row's by_list).
+    grad_large = check_backward(
+        "the large frame's deposits", *splat.product_deposits(state.photons),
+        state.photons.radius_rel, step.light_volume_shape(config), 33, tag,
+        reps=5)
+    torch.cuda.empty_cache()
     # One correlated update of the large frame: 419,584 of its photons.
     correlated_big = correlated_large(scene, config, state, dev, tag)
     del scene, state
@@ -5051,6 +5107,8 @@ def main() -> None:
         "65x65x65x3", weighted["launches"], weighted["batches"],
         weighted["on_delta"]))
     rows[-1]["drain_ms"] = weighted["drain_ms"]
+    grads["by_list"] = {"config 3 guided frame": guided["on_grad"],
+                        "large frame": grad_large}
     rows.append(grad_row(grads))
     for key, caller in (
             ("world2", "sharded_trace_splat (sharded_full_step, 2 gloo ranks "

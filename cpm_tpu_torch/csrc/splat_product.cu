@@ -70,13 +70,23 @@
 //
 //   dP[p, c] = sum_{z,y,x} Kz[p, z] * Ky[p, y] * Kx[p, x] * G[z, y, x, c],
 //
-// with the same weights, computed by the same axis_weight. The Pallas
+// with the same weights, the floats axis_weight computes. The Pallas
 // kernel has no backward (the reference differentiates an XLA splat), so
-// this one is new. It is a gather: one thread per deposit reads the
-// ~27 nonzero cells of its window from G (3.3 MB at 65^3, held in L2) and
-// writes its 12 bytes once, with no atomics. What bounds it is bytes:
-// 12 B of position read and 12 B of gradient written a slot, and G read
-// once, 9.6 MB or 2.9 us at 262,144 slots into 65^3. An unused slot (x >=
+// this one is new. It is a gather: one thread per slot reads the nonzero
+// cells of its window from G (3.3 MB at 65^3, held in L2; mostly 8 of
+// them at the default frame's r * n = 1.0001) and writes its 12 bytes
+// once, with no atomics. What bounds it is bytes: 12 B of position read
+// and 12 B of gradient written a slot, and G read once, 9.6 MB or 2.9 us
+// at 262,144 slots into 65^3. A live slot's weights cost it most of its
+// instructions when each takes an IEEE division for its cell centre (15
+// at W = 5), so a block divides the d + h + w centres once into shared
+// memory, and as many blocks as the card keeps resident stride over the
+// slots, so that each block's division serves many slots. On an H100 it is
+// faster on the frame-sized lists and slower on the large frame's 16.8 M
+// slots than one division a weight; other designs (block compaction of the
+// live slots, their rows spread over lanes, windows trimmed to their
+// nonzero cells, a table in global memory or one a slot tile) were slower
+// on the driven list or on most lists (PERF.md §6). An unused slot (x >=
 // 1e30 or NaN, float16's +inf included) writes 0 without reaching a
 // weight: an infinite position would make NaN there, and 0 * NaN stays NaN
 // after the powers' validity mask.
@@ -221,24 +231,33 @@ __device__ __forceinline__ void add_deposit(float px, float py, float pz,
   }
 }
 
+// axis_weight of cell i of an axis whose cell centres are c: the same
+// float, with the centre read and not divided.
+__device__ __forceinline__ float centre_weight(const float* c, int i,
+                                               float p, float inv_r) {
+  return epan(__fmul_rn(__fsub_rn(c[i], p), inv_r));
+}
+
 // Adds one deposit's kernel-weighted sum of the grid gradient g over its
 // window to acc, the transpose of add_deposit<W> (same weights, same
-// skipped zeros).
+// skipped zeros); c holds the cell centres of z, then y, then x.
 template <int W>
 __device__ __forceinline__ void gather_deposit(float px, float py, float pz,
                                                int x0, int x1, int y0, int y1,
                                                int z0, int z1, float inv_r,
                                                int d, int h, int w,
                                                const float* __restrict__ g,
+                                               const float* c,
                                                float (&acc)[3]) {
   auto row = [&](int z, int y) { return g + ((size_t)z * h + y) * w * 3; };
+  const float *cz = c, *cy = c + d, *cx = c + d + h;
   if constexpr (W > 0) {
     float kx[W], ky[W], kz[W];
 #pragma unroll
     for (int j = 0; j < W; ++j) {
-      kx[j] = x0 + j <= x1 ? axis_weight(x0 + j, w, px, inv_r) : 0.0f;
-      ky[j] = y0 + j <= y1 ? axis_weight(y0 + j, h, py, inv_r) : 0.0f;
-      kz[j] = z0 + j <= z1 ? axis_weight(z0 + j, d, pz, inv_r) : 0.0f;
+      kx[j] = x0 + j <= x1 ? centre_weight(cx, x0 + j, px, inv_r) : 0.0f;
+      ky[j] = y0 + j <= y1 ? centre_weight(cy, y0 + j, py, inv_r) : 0.0f;
+      kz[j] = z0 + j <= z1 ? centre_weight(cz, z0 + j, pz, inv_r) : 0.0f;
     }
 #pragma unroll
     for (int jz = 0; jz < W; ++jz) {
@@ -261,14 +280,14 @@ __device__ __forceinline__ void gather_deposit(float px, float py, float pz,
     }
   } else {
     for (int z = z0; z <= z1; ++z) {
-      float kz = axis_weight(z, d, pz, inv_r);
+      float kz = centre_weight(cz, z, pz, inv_r);
       if (kz == 0.0f) continue;
       for (int y = y0; y <= y1; ++y) {
-        float a = kz * axis_weight(y, h, py, inv_r);
+        float a = kz * centre_weight(cy, y, py, inv_r);
         if (a == 0.0f) continue;
         const float* r = row(z, y);
         for (int x = x0; x <= x1; ++x) {
-          float k = axis_weight(x, w, px, inv_r);
+          float k = centre_weight(cx, x, px, inv_r);
           if (k == 0.0f) continue;
           float wgt = a * k;
           acc[0] += wgt * r[3 * x];
@@ -301,25 +320,35 @@ __global__ void splat_direct_kernel(const float* __restrict__ pos,
 
 // -------------------------------------------------------------- backward
 
-// dpw[i] = the splat's transpose applied to g at deposit i; one thread per
-// deposit, every slot written (0 for an unused one).
+// dpw[i] = the splat's transpose applied to g at slot i; one thread per
+// slot, the blocks striding over the slots, every slot written (0 for an
+// unused one). A block first divides the d + h + w cell centres into its
+// shared memory (z, then y, then x), the floats axis_weight divides.
 template <int W>
 __global__ void splat_grad_kernel(const float* __restrict__ pos,
                                   const float* __restrict__ g, int m, float r,
                                   float inv_r, int d, int h, int w,
                                   float* __restrict__ dpw) {
-  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)m) return;
-  float px = pos[3 * i], py = pos[3 * i + 1], pz = pos[3 * i + 2];
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  int x0, x1, y0, y1, z0, z1;
-  if (px < 1e30f && axis_window(px, r, w, &x0, &x1) &&
-      axis_window(py, r, h, &y0, &y1) && axis_window(pz, r, d, &z0, &z1))
-    gather_deposit<W>(px, py, pz, x0, x1, y0, y1, z0, z1, inv_r, d, h, w, g,
-                      acc);
-  dpw[3 * i] = acc[0];
-  dpw[3 * i + 1] = acc[1];
-  dpw[3 * i + 2] = acc[2];
+  extern __shared__ float centres[];
+  for (int t = threadIdx.x; t < d + h + w; t += blockDim.x) {
+    const int n = t < d ? d : t < d + h ? h : w;
+    const int j = t < d ? t : t < d + h ? t - d : t - d - h;
+    centres[t] = __fdiv_rn((float)j + 0.5f, (float)n);
+  }
+  __syncthreads();
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < (size_t)m; i += (size_t)gridDim.x * blockDim.x) {
+    float px = pos[3 * i], py = pos[3 * i + 1], pz = pos[3 * i + 2];
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+    int x0, x1, y0, y1, z0, z1;
+    if (px < 1e30f && axis_window(px, r, w, &x0, &x1) &&
+        axis_window(py, r, h, &y0, &y1) && axis_window(pz, r, d, &z0, &z1))
+      gather_deposit<W>(px, py, pz, x0, x1, y0, y1, z0, z1, inv_r, d, h, w,
+                        g, centres, acc);
+    dpw[3 * i] = acc[0];
+    dpw[3 * i + 1] = acc[1];
+    dpw[3 * i + 2] = acc[2];
+  }
 }
 
 // --------------------------------------------------------------- binning
@@ -535,13 +564,30 @@ cudaError_t launch_direct(const float* pos, const float* pw, int m, float r,
   return cudaGetLastError();
 }
 
+// As many blocks as the card keeps resident with the centres' shared
+// memory, or one a kThreads slots where that is fewer.
 template <int W>
 cudaError_t launch_grad(const float* pos, const float* g, int m, float r,
                         float inv_r, int d, int h, int w, float* dpw,
                         cudaStream_t stream) {
-  int blocks = (int)(((long long)m + kThreads - 1) / kThreads);
-  splat_grad_kernel<W><<<blocks, kThreads, 0, stream>>>(pos, g, m, r, inv_r,
-                                                        d, h, w, dpw);
+  const size_t smem = (size_t)(d + h + w) * sizeof(float);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = allow_smem(splat_grad_kernel<W>, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, splat_grad_kernel<W>, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const long long tiles = ((long long)m + kThreads - 1) / kThreads;
+  const int blocks = (int)(tiles < (long long)sms * per_sm
+                               ? tiles
+                               : (long long)sms * per_sm);
+  splat_grad_kernel<W><<<blocks, kThreads, smem, stream>>>(pos, g, m, r,
+                                                           inv_r, d, h, w,
+                                                           dpw);
   return cudaGetLastError();
 }
 
@@ -587,7 +633,8 @@ extern "C" int cpm_splat_direct(const float* pos, const float* pw, int m,
 
 // Backward of the splat: writes dpw (m, 3), the transpose of the splat of
 // m deposits applied to the grid gradient g (d, h, w, 3), one thread per
-// deposit. width as for cpm_splat_direct.
+// slot, (d + h + w) * 4 bytes of shared memory a block (at most 227 KB).
+// width as for cpm_splat_direct.
 extern "C" int cpm_splat_grad(const float* pos, const float* g, int m,
                               float r, float inv_r, int d, int h, int w,
                               int width, float* dpw, void* stream_) {

@@ -20,8 +20,10 @@ raise.
 The splat's backward with respect to the powers is its transpose,
 :func:`splat_product_grad`: CPU tensors go to
 :func:`splat_product_grad_torch`, CUDA tensors to the gather kernel
-``splat_grad_kernel`` (one thread per deposit, no atomics). The Pallas
-kernel has none: the reference differentiates an XLA splat.
+``splat_grad_kernel`` (one thread per slot gathering the grid gradient
+over its window, the cell centres divided once a block into shared
+memory; no atomics). The Pallas kernel has none: the reference
+differentiates an XLA splat.
 :class:`SplatProduct` joins the forward and this backward for autograd.
 """
 
@@ -449,23 +451,69 @@ def _check_grid_grad(grad: Tensor, out_dim: tuple, device) -> None:
                          "different devices")
 
 
-def splat_product_grad_cuda(positions: Tensor, grad: Tensor,
-                            radius_rel: float, out_dim: tuple) -> Tensor:
-    """The splat's backward on CUDA tensors: ``splat_grad_kernel``, one
-    thread per deposit gathering the grid gradient over its window.
-    ``splat_product_grad_cuda.launches`` counts its launches."""
-    r, (d, h, w) = _checked_cuda(positions, positions, radius_rel, out_dim)
-    _check_grid_grad(grad, (d, h, w), positions.device)
+@functools.lru_cache(maxsize=64)
+def _grad_constants(radius_rel: float, out_dim: tuple) -> tuple:
+    """(float32 radius, its inverse, the kernel's window width) of a
+    backward onto ``out_dim``; raises on a bad radius or grid."""
+    r = float(np.float32(radius_rel))
+    _check_grid(out_dim)
+    if not (math.isfinite(r) and r > 0.0):
+        raise ValueError(f"bad radius {radius_rel}")
+    return r, float(inverse_radius(r)), kernel_width(r, out_dim)
+
+
+def _checked_grad(positions: Tensor, grad: Tensor, radius_rel: float,
+                  out_dim: tuple) -> tuple:
+    """The backward's checks, each once: ((r, 1 / r, width), (d, h, w));
+    raises unless the positions and the grid gradient are well-formed and
+    on one device."""
+    _check_deposits("positions", positions)
+    dim = tuple(int(s) for s in out_dim)
+    consts = _grad_constants(float(radius_rel), dim)
+    _check_grid_grad(grad, dim, positions.device)
+    return consts, dim
+
+
+def _launch_grad(positions: Tensor, grad: Tensor, consts: tuple,
+                 dim: tuple) -> Tensor:
+    """``splat_grad_kernel`` on checked CUDA tensors, on the current
+    stream of their device (entered only when it is not the current
+    one)."""
+    r, inv_r, width = consts
+    d, h, w = dim
+    if 4 * (d + h + w) > SMEM_BYTES:
+        raise ValueError(f"grid {dim}: the backward kernel keeps its "
+                         f"{d + h + w} cell centres in shared memory, at "
+                         f"most {SMEM_BYTES // 4}")
     m = positions.shape[0]
-    out = torch.empty((m, 3), dtype=torch.float32, device=positions.device)
-    with torch.cuda.device(positions.device):
-        err = _library().cpm_splat_grad(
-            positions.data_ptr(), grad.data_ptr(), m, r,
-            float(inverse_radius(r)), d, h, w, kernel_width(r, (d, h, w)),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    dev = positions.device
+    out = torch.empty((m, 3), dtype=torch.float32, device=dev)
+
+    def launch():
+        return _library().cpm_splat_grad(
+            positions.data_ptr(), grad.data_ptr(), m, r, inv_r, d, h, w,
+            width, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+    if dev.index == torch.cuda.current_device():
+        err = launch()
+    else:
+        with torch.cuda.device(dev):
+            err = launch()
     _raise_on(err, "splat backward kernel")
     splat_product_grad_cuda.launches += 1
     return out
+
+
+def splat_product_grad_cuda(positions: Tensor, grad: Tensor,
+                            radius_rel: float, out_dim: tuple) -> Tensor:
+    """The splat's backward on CUDA tensors: ``splat_grad_kernel``, one
+    thread per slot gathering the grid gradient over its window; raises
+    for a grid whose d + h + w cell centres pass a block's shared memory.
+    ``splat_product_grad_cuda.launches`` counts its launches."""
+    consts, dim = _checked_grad(positions, grad, radius_rel, out_dim)
+    _check_cuda(positions)
+    return _launch_grad(positions, grad, consts, dim)
 
 
 splat_product_grad_cuda.launches = 0
@@ -476,13 +524,11 @@ def splat_product_grad(positions: Tensor, grad: Tensor, radius_rel: float,
     """The (M, 3) gradient of a splat's powers given its grid's gradient
     (D, H, W, 3): CPU tensors go to the plain version, CUDA tensors launch
     the backward kernel; anything else raises."""
-    radius_rel = float(np.float32(radius_rel))
-    _check_inputs(positions, positions, radius_rel, out_dim)
-    dim = tuple(int(s) for s in out_dim)
-    _check_grid_grad(grad, dim, positions.device)
+    consts, dim = _checked_grad(positions, grad, radius_rel, out_dim)
     if positions.device.type == "cpu":
-        return splat_product_grad_torch(positions, grad, radius_rel, dim)
-    return splat_product_grad_cuda(positions, grad, radius_rel, dim)
+        return splat_product_grad_torch(positions, grad, consts[0], dim)
+    _check_cuda(positions)
+    return _launch_grad(positions, grad, consts, dim)
 
 
 class SplatProduct(torch.autograd.Function):

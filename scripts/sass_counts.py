@@ -4,8 +4,9 @@ instructions of its loops (``cuobjdump -sass``).
 
     python3 scripts/sass_counts.py [SOURCE.cu ...]
 
-builds each source (``cpm_tpu_torch/csrc/sweep_scan.cu`` and
-``woodcock_trace.cu`` by default) with its wrapper's flags through
+builds each source (``cpm_tpu_torch/csrc/sweep_scan.cu``,
+``woodcock_trace.cu`` and ``splat_product.cu`` by default) with its
+wrapper's flags through
 ``cpm_tpu_torch/kernels/_build.py`` and prints one JSON line per kernel of
 it. A loop is the span from a backward branch's target to the branch; a
 kernel's main loop is its widest one (the sweep's plane loop, the trace's
@@ -346,11 +347,11 @@ def report(lib: Path, names: list[str]) -> dict:
 
 
 def main(argv: list[str]) -> None:
-    from cpm_tpu_torch.kernels import sweep_scan, woodcock_trace
-    flags = {m.SOURCE.name: m.NVCC_FLAGS for m in (sweep_scan,
-                                                    woodcock_trace)}
-    sources = [Path(a) for a in argv] or [sweep_scan.SOURCE,
-                                          woodcock_trace.SOURCE]
+    from cpm_tpu_torch.kernels import (splat_product, sweep_scan,
+                                       woodcock_trace)
+    mods = (sweep_scan, woodcock_trace, splat_product)
+    flags = {m.SOURCE.name: m.NVCC_FLAGS for m in mods}
+    sources = [Path(a) for a in argv] or [m.SOURCE for m in mods]
     for src in sources:
         lib, _ = _build.build(src.resolve(), flags[src.name])
         for name, counts in report(lib, kernel_names(src)).items():
