@@ -46,10 +46,11 @@ no result, without them. It imports nothing but the port. In order it:
    Then the trace kernels (``csrc/woodcock_trace.cu``: the majorant
    grids' pre-pass, three launches a trace, held bit for bit against its
    plain version ``tracer.majorant_grids_torch`` on every timed list's
-   scene and at 17-, 64- and 256-point TFs, timed beside its bound; and
-   the trace, one launch a trace, a lane a thread, its blocks compacting
-   their live lanes, refilled from a counter above what the card keeps
-   resident): the trace is held against the wavefront loop
+   scene, timed beside its bound; and the trace, one launch a trace, a
+   lane a thread, its blocks compacting their live lanes, refilled from a
+   counter above what the card keeps resident; both read the transfer
+   functions from shared memory, or from device memory past a block's
+   shared memory): the trace is held against the wavefront loop
    (``method="wavefront"``) lane by lane, bit for bit in at least 99.9%
    of the lanes, with equal statistics and splatted light volumes within
    1e-3 relative L1, on the default frame with each option (float16 at 2
@@ -57,12 +58,17 @@ no result, without them. It imports nothing but the port. In order it:
    clip box), in chunks, on one rank's shard of 2 with global lane ids,
    and on a correlated step's retrace of 6,656 lanes with their lane ids
    (later also on a config 4 retrace, config 3's guided frame and the
-   large frame's 4,194,304 lanes); both are timed in turns (wavefront,
-   kernel, kernel, wavefront) with the kernel's device time from
+   large frame's 4,194,304 lanes), with the transfer functions read
+   from device memory (a limit of 0 bytes), and with a TF of 17, 64 and
+   256 points; the default frame and the retrace are timed in turns
+   (wavefront, kernel, kernel, wavefront), the other lists beside the
+   wavefront's one run, with the kernel's device time from
    ``torch.profiler`` beside its bound (the instructions every flight
    that goes on issues, counted by pipe from the build's SASS with
    ``scripts/sass_counts.py``, on the busiest pipe) and its SIMT
-   efficiency; one trace call is broken down under the profiler; the
+   efficiency, and so is the kernel with both transfer functions of
+   40,000 points (read from device memory; the card tests hold it to the
+   wavefront); one trace call is broken down under the profiler; the
    host waits of one trace (none) and of one with ``return_stats`` (one)
    are counted in sync debug mode; a packed ``interactive_frame``
    (``pipeline/packed.py``) is counted, held against the same frame
@@ -71,8 +77,9 @@ no result, without them. It imports nothing but the port. In order it:
    the kernel and through the wavefront loop;
    Then the sweep kernels (``csrc/sweep_scan.cu``: the forward, a plane
    pre-pass and a march, one launch of each per sweep (per chunk of
-   planes under ``sweep_scan.PLANE_BUDGET``; every driven sweep is one
-   chunk), one thread per intermediate ray; the backward, the pre-pass, a
+   planes under ``sweep_scan.PLANE_BUDGET``; config 5's sweep is two
+   chunks, every other driven sweep one), one thread per intermediate
+   ray; the backward, the pre-pass, a
    gradient march and a fold, one launch of each per chunk of a gradient
    through a sweep), each kernel's registers and the static
    instructions of its plane loop (``scripts/sass_counts.py``, where the
@@ -87,7 +94,8 @@ no result, without them. It imports nothing but the port. In order it:
    float16 frame and the float16 light volume at 4 interactions, whose
    +inf texels give NaN where the plain loop's products do (NaN held
    equal, the NaN pixels of both images counted and equal), and the frame
-   with transfer functions of 17, 64 and 256 points; its device time
+   with transfer functions of 17, 64 and 256 points (at 64 and 256 its
+   scans, not the image rendered again); its device time
    (``torch.profiler``, the pre-pass and the march apart and together)
    beside its bound, and the pre-pass's beside its own byte bound, on the
    frame (at each of those point counts), the eye inside and config 3;
@@ -98,9 +106,10 @@ no result, without them. It imports nothing but the port. In order it:
    against the plain loop with its plain backward on the frame's image
    loss with the 64-point TF, within rtol 1e-3, atol 1e-5 of each
    gradient's largest component, and alone
-   against its plain version (``_scan_planes_grad_torch``) at 4, 17, 64
-   and 256 TF points, its fold bit for bit against the fold's plain
-   version (``_fold_plane_grads_torch``) on the gradient march's own
+   against its plain versions (``_scan_planes_grad_torch``) at 4 and 17
+   TF points, timed at 64 and 256, its fold bit for bit against the
+   fold's plain version (``_fold_plane_grads_torch``) on the gradient
+   march's own
    planes, the pre-pass, gradient march and fold timed apart and together
    beside their bounds; render_state, the frame and the interactive frame
    in turns (plain loop, kernels, kernels, plain loop), and the host
@@ -127,6 +136,23 @@ no result, without them. It imports nothing but the port. In order it:
    host waits for the card counted; a small correlated step on the card is
    held against the same step on the CPU (selection equal, light volume
    within 1% relative L1);
+   Then BASELINE config 5 as written (bench.py:479-491: a 512^3 cloud,
+   two directional lights of 2048 x 1024 samples, 4,194,304 photons x 4
+   interactions, a 1024^2 image) through ``init_state`` ->
+   ``full_trace_step`` -> ``render_state``, counted, each stage's time and
+   peak memory printed: the frame's checks above, the trace against the
+   wavefront (timed), both splat designs and the plain version on its
+   deposits, the sweep (two chunks of planes) against the plain loop at
+   every 8th row of its intermediate image and bit for bit against the
+   same render in one chunk, timed; then, after the TF edit,
+   ``build_importance_grid`` and one ``correlated_step_scalable`` (10%,
+   4 quadrature samples), counted, its light volume held to the state's
+   less the plain splat of the removed list plus that of the added one.
+   Then BASELINE config 2 (bench.py:282-342: 128^3, 512 x 512 photons):
+   ``full_trace_step`` and 16 ``progressive_step`` passes, counted, each
+   pass's time, relative L1 change of the running mean and splat window
+   printed; the running mean within 1e-5 of the float64 mean of the
+   passes' light volumes, the last change below the first;
    Then, at the default frame: the trace's statistics
    (``return_stats``: photons equal to the run without them, no added host
    wait, the active history's last slot in the last group of flights);
@@ -315,6 +341,61 @@ def build_frame(device=None, vol_dim=128, photons=256, max_interactions=4,
     return scene, config
 
 
+# bench.py:47-48: its two directional lights; bench.build takes the first
+# n_lights of them. Above 2^20 photons it halves the importance quadrature
+# (bench.py:51-55).
+BENCH_LIGHTS = ((0.0, -1.0, 0.3), (0.8, -0.4, -0.2))
+HALF_QUADRATURE_PHOTONS = 1 << 20
+
+
+def build_bench(vol_dim: int, photons_xy: tuple, max_interactions: int,
+                width: int = 512, n_lights: int = 1, device=None):
+    """The reference's ``bench.build`` (bench.py:34-64) on the port:
+    smoke_cloud(vol_dim, seed=3), default TFs, the first ``n_lights`` of
+    BENCH_LIGHTS, the default camera, ``photons_xy`` samples a light,
+    max_steps 6000, correlated batches of 10% with 4 quadrature samples
+    above HALF_QUADRATURE_PHOTONS photons (8 below), a width^2 image. With
+    no ``device`` the scene is made on the card."""
+    volume = Volume.from_data(synthetic.smoke_cloud(vol_dim, seed=3),
+                              device=device)
+    tf = TransferFunction.from_points(*synthetic.default_tf_points(),
+                                      device=device)
+    tfs = TransferFunction.from_points(
+        *synthetic.default_scattering_points(), device=device)
+    lights = [Light.directional(d) for d in BENCH_LIGHTS[:n_lights]]
+    scene = Scene.create(volume, tf, tfs, lights,
+                         Camera.create(device=device))
+    photons = photons_xy[0] * photons_xy[1] * max(n_lights, 1)
+    config = PipelineConfig(
+        photons_x=photons_xy[0], photons_y=photons_xy[1],
+        tracer=TracerConfig(max_interactions=max_interactions,
+                            max_steps=6000),
+        recompute=RecomputeConfig(
+            max_photons_fraction=0.1,
+            importance_quadrature_samples=(
+                4 if photons > HALF_QUADRATURE_PHOTONS else 8)),
+        render=RenderConfig(width=width, height=width))
+    return scene, config
+
+
+def build_config2(device=None):
+    """BASELINE config 2 (bench.py:282-342, ``--config2``): 128^3, 512 x 512
+    photons x 4 interactions, a 512^2 image, 16 progressive passes."""
+    return build_bench(128, (512, 512), 4, width=512, device=device)
+
+
+def build_config5(device=None):
+    """BASELINE config 5 as written (bench.py:479-491, ``--large512``):
+    512^3, two directional lights of 2048 x 1024 samples (4,194,304
+    photons) x 4 interactions, a 1024^2 image, ``brick_scale=4`` as the
+    reference sets it (it shapes only the TPU's brick table; the port
+    ignores it)."""
+    scene, config = build_bench(512, (2048, 1024), 4, width=1024,
+                                n_lights=2, device=device)
+    return scene, dataclasses.replace(config, tracer=dataclasses.replace(
+        config.tracer, brick_scale=4))
+
+
 def edit_tf(scene: Scene) -> Scene:
     """The scene after a transfer-function edit: every opacity times
     OPACITY_EDIT, clamped to 1."""
@@ -446,7 +527,8 @@ WINDOWS = collections.Counter()
 MISSING = collections.Counter()
 
 
-def device_ms(what: str, fn, reps: int, by_name: bool = False):
+def device_ms(what: str, fn, reps: int, by_name: bool = False,
+              uneven: bool = False):
     """Mean device milliseconds per call of ``fn``, which enqueues
     RECORDS[what]: the device time of those kernels and memsets in a
     ``torch.profiler`` window over ``reps`` calls (with ``by_name``, a dict
@@ -457,10 +539,11 @@ def device_ms(what: str, fn, reps: int, by_name: bool = False):
     it), and now and then a longer stretch; a name's time in such a short
     window is the mean of its records that are there, times its known
     launches per call. A window with no record of some name, or with a
-    kernel's record under half or over twice that kernel's median, is
-    printed and taken again, four times at most. Raises where a window
-    holds more records than were enqueued; 0.0 when four windows in a row
-    show no device time at all."""
+    kernel's record under half or over twice that kernel's median (unless
+    ``uneven``: a call whose launches do unequal work, as the chunks of
+    planes of a sweep), is printed and taken again, four times at most.
+    Raises where a window holds more records than were enqueued; 0.0 when
+    four windows in a row show no device time at all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     want = {name: reps * per for name, per in RECORDS[what].items()}
@@ -484,7 +567,7 @@ def device_ms(what: str, fn, reps: int, by_name: bool = False):
             raise AssertionError(f"{what}: the window holds the records "
                                  f"{counts}, more than the {want} enqueued")
         odd = {name: [round(t, 1) for t in us] for name, us in seen.items()
-               if us and name != "Memset"
+               if us and name != "Memset" and not uneven
                and not 0.5 * statistics.median(us) < min(us) <= max(us)
                < 2.0 * statistics.median(us)}
         if all(counts.values()) and not odd:
@@ -921,16 +1004,20 @@ def between_frames(tag) -> dict:
     return out
 
 
-def expect_frame(what: str, config, state, img, dev, launches) -> None:
+def expect_frame(what: str, config, state, img, dev, launches,
+                 sweeps: int | None = None) -> None:
     """A frame's checks: the kernel launched once in the design the wrapper
     names for its slots, photons deposited, light volume and image on the
     card, finite, the image not empty, and the light volume equal to the
-    plain splat of the frame's own deposits."""
+    plain splat of the frame's own deposits. ``sweeps``: the sweep's
+    forward launches (a pre-pass and a march a chunk of planes), one for a
+    sweep-rendered frame unless given."""
     slots = state.photons.positions.shape[0] * state.photons.positions.shape[1]
     dim = step.light_volume_shape(config)
+    if sweeps is None:
+        sweeps = int(config.render.method == "sweep")
     expect_launches(what, launches, [sp.choose_design(
-        slots, state.photons.radius_rel, dim)],
-        sweeps=int(config.render.method == "sweep"))
+        slots, state.photons.radius_rel, dim)], sweeps=sweeps)
     deposited = int((state.photons.positions[..., 0] < 1e30).sum())
     lv = state.light_volume
     alpha = float(img[..., 3].max())
@@ -987,10 +1074,18 @@ def counted_frame(what: str, dev, tag, reps: int, **frame) -> tuple:
 TRACE_MAX_LANES_DIFFER = 1e-3
 TRACE_LV_REL_L1 = 1e-3
 TRACE_TURNS = ("wavefront", "cuda", "cuda", "wavefront")
+# Turns of a timed list whose wavefront runs once, for the comparison: the
+# lists past the default frame and its retrace, whose in-turns times are
+# PERF.md's.
+PLAIN_ONCE = ("cuda",)
 RETRACE_LANES = 6656  # a default correlated step's budget (10% of 65,536)
 TRACE_CHUNK = 16384
 CLIP_BOX = dict(clip_min=(0.1, 0.0, 0.2), clip_max=(0.9, 1.0, 0.8))
 RECORDS["trace"] = {"woodcock_trace_kernel": 1}
+# Past a block's shared memory the wrapper launches the kernel's twin that
+# reads the transfer functions from device memory.
+RECORDS["trace, TFs in device memory"] = {
+    "woodcock_trace_global_tf_kernel": 1}
 
 
 @contextlib.contextmanager
@@ -1054,7 +1149,8 @@ def trace_lists(names):
     correlated batch after the TF edit, 6,656 lanes with their ids, on the
     edited scene), "config4" (config 4's step 1 retrace, on step 1's
     volume), "config3" (config 3's guided frame, 65,536 lanes, 256^3) and
-    "large" (the large frame's 4,194,304 lanes, 256^3)."""
+    "large" (the large frame's 4,194,304 lanes, 256^3) and "config5"
+    (config 5's frame, 4,194,304 lanes of two lights, 512^3)."""
     if "default" in names or "retrace" in names:
         scene, config = build_frame()
         state = step.full_trace_step(scene, step.init_state(scene, config),
@@ -1089,6 +1185,10 @@ def trace_lists(names):
         scene, config = build_frame(**LARGE_FRAME)
         state = step.init_state(scene, config)
         yield ("large", scene, *frame_list(state)[:2], config.tracer, None)
+    if "config5" in names:
+        scene, config = build_config5()
+        state = step.init_state(scene, config)
+        yield ("config5", scene, *frame_list(state)[:2], config.tracer, None)
 
 
 # The card's operation rates, for the trace's and the pre-pass's bounds:
@@ -1137,8 +1237,12 @@ def trace_bound(c, n: int, flights: int, lanes_flown: int,
     (:func:`flight_counts`), on the busiest of the SM's pipes at its rate
     (``sass_counts.clocks``: 64 ALU, 128 FMA, 16 XU operations and 128
     issue slots a clock an SM) at SMS x SM_CLOCK_HZ. A floor: what only
-    some flights do (the fetch, the transfer functions, an interaction)
-    is left out."""
+    some flights do (the fetch, the transfer functions' evaluations, an
+    interaction) is left out. The transfer function's size adds no term:
+    its points are ascending (core/types.py), so an evaluation needs
+    about log2(points) compares and one segment's lerp (25 operations at
+    40,000 points), well under a flight's issue on every list timed,
+    whatever this kernel's own compare loop costs."""
     vol = math.prod(c.shape) * 4 + 8 * c.maj.numel()
     nbytes = vol + n * (44 + 8 + 12 + 20 * tape) \
         + c.max_interactions * n * 32
@@ -1165,6 +1269,10 @@ GRIDS = wt.trace_grids_cuda  # the pre-pass's wrapper, one count a call
 RECORDS["grids"] = {"trace_grids_minmax_kernel": 1,
                     "trace_grids_majorant_kernel": 1,
                     "trace_grids_distance_kernel": 1}
+RECORDS["grids, TF in device memory"] = {
+    "trace_grids_minmax_kernel": 1,
+    "trace_grids_majorant_global_tf_kernel": 1,
+    "trace_grids_distance_kernel": 1}
 GRID_OPS_PER_VOXEL = 2  # its min and its max
 
 
@@ -1180,26 +1288,33 @@ def grids_bound(volume, maj, tf, tcfg) -> dict:
     """The least time of the grids' pre-pass: the volume read once, the
     (majorant, distance) table and the largest majorant written once, at
     HBM_BYTES_PER_S, against its float operations (a min and a max a
-    voxel; a cell's dilation window twice, its two TF evaluations and a
-    compare pair a TF point) at FP32_LANE_OPS_PER_S."""
+    voxel; a cell's dilation window twice, and, its points being ascending,
+    its two TF evaluations and the search for the points in its range, each
+    about log2(points) compares, with two lerps of 9 operations and 20 for
+    the rest; the points in the range are left out) at
+    FP32_LANE_OPS_PER_S."""
     cells = maj.numel()
     voxels = volume.data.numel()
     nbytes = 4 * voxels + 8 * cells + 4
     window = (2 * tcfg.block_ring + 1) ** 3
-    p = tf.positions.shape[0]
-    ops = GRID_OPS_PER_VOXEL * voxels + cells * (2 * window + 3 * p + 20)
+    search = math.ceil(math.log2(tf.positions.shape[0]))
+    ops = GRID_OPS_PER_VOXEL * voxels + cells * (2 * window + 4 * search
+                                                 + 2 * 9 + 20)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_LANE_OPS_PER_S
     return {"bytes": nbytes, "operations": ops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def check_grids(what: str, volume, tf, tcfg, tag, reps: int = 20) -> dict:
+def check_grids(what: str, volume, tf, tcfg, tag, reps: int = 20,
+                plain_reps: int = 3, held: bool = True) -> dict:
     """The grids' pre-pass against its plain version
     (``tracer.majorant_grids_torch``) on the card: majorants, distances
     and their largest bit for bit, one counted call; its device time
     (``torch.profiler``, its three kernels), its call and the plain
-    version's, beside its bound."""
+    version's (``plain_reps`` calls; with 0 the one call of the
+    comparison), beside its bound. With ``held`` False only timed (the
+    comparison made elsewhere): no plain version runs."""
     torch.cuda.synchronize()
     before = GRIDS.launches
     got = tracer.majorant_grids(volume, tf, tcfg)
@@ -1207,38 +1322,47 @@ def check_grids(what: str, volume, tf, tcfg, tag, reps: int = 20) -> dict:
     if GRIDS.launches != before + 1:
         raise AssertionError(f"{what}: {GRIDS.launches - before} pre-pass "
                              "calls")
-    want = tracer.majorant_grids_torch(volume, tf, tcfg)
-    differ = {name: bits_differ(g, w) for name, g, w in zip(
-        ("maj", "dist", "maj_global"), got[:3], want[:3])}
     nonzero = int((got[0] > 0.0).sum())
-    print(f"grids pre-pass vs its plain version, {what}: "
-          f"{tuple(got[0].shape)} cells ({nonzero} nonzero), elements "
-          f"differing {differ}, largest majorant {float(got[2]):.6g} "
-          f"({tag})")
-    if any(differ.values()) or got[3] != want[3] or GRIDS.launches \
-            != before + 1:
-        raise AssertionError(f"{what}: the pre-pass is not its plain "
-                             "version")
+    differ, plain = None, None
+    if held:
+        want, plain = timed_once(
+            lambda: tracer.majorant_grids_torch(volume, tf, tcfg))
+        differ = {name: bits_differ(g, w) for name, g, w in zip(
+            ("maj", "dist", "maj_global"), got[:3], want[:3])}
+        print(f"grids pre-pass vs its plain version, {what}: "
+              f"{tuple(got[0].shape)} cells ({nonzero} nonzero), elements "
+              f"differing {differ}, largest majorant {float(got[2]):.6g} "
+              f"({tag})")
+        if any(differ.values()) or got[3] != want[3] or GRIDS.launches \
+                != before + 1:
+            raise AssertionError(f"{what}: the pre-pass is not its plain "
+                                 "version")
 
     def run():
         return tracer.majorant_grids(volume, tf, tcfg)
 
-    dev_ms = device_ms("grids", run, reps, by_name=True)
+    records = "grids, TF in device memory" if GRIDS.tf_global else "grids"
+    dev_ms = device_ms(records, run, reps, by_name=True)
     total = sum(dev_ms.values())
     if total == 0.0:
         raise AssertionError("torch.profiler showed no device time")
     call = cuda_ms(run, reps)
-    plain = cuda_ms(lambda: tracer.majorant_grids_torch(volume, tf, tcfg), 3)
+    if held and plain_reps:
+        plain = cuda_ms(lambda: tracer.majorant_grids_torch(
+            volume, tf, tcfg), plain_reps)
     bound = grids_bound(volume, got[0], tf, tcfg)
+    plain_is = "not run" if plain is None else f"{plain:.3f} ms"
     print(f"grids pre-pass, {what}: device time {total:.4f} ms ("
           + ", ".join(f"{k.split('_')[2]} {v:.4f}" for k, v in
                       dev_ms.items())
-          + f"), call {call:.4f} ms, plain version {plain:.3f} ms; bound "
+          + f"), call {call:.4f} ms, plain version {plain_is}; bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
           f"{bound['bytes']} B), {bound['bound_ms'] / total:.1%} of it "
           f"({tag})")
     return {"cells": list(got[0].shape), "nonzero_cells": nonzero,
-            "elements_differing": differ, "max_abs_err": 0.0,
+            "elements_differing": differ,
+            "max_abs_err": 0.0 if held else None,
+            "tf_points": tf.positions.shape[0], "tf_global": GRIDS.tf_global,
             "ms": total, "ms_by_kernel": dev_ms, "call_ms": call,
             "plain_ms": plain, **bound}
 
@@ -1288,7 +1412,8 @@ def call_breakdown(what: str, fn, tag) -> dict:
 
 
 def check_trace(what: str, scene, samples, key, tcfg, dim, tag, *,
-                lane_ids=None, chunk=None, timed=False, **opts) -> dict:
+                lane_ids=None, chunk=None, timed=False, turns=TRACE_TURNS,
+                held=True, **opts) -> dict:
     """The trace kernel against the wavefront loop on one list of light
     samples, through ``trace_photons`` (or ``trace_photons_chunked`` in
     chunks of ``chunk``) with ``method`` named: lanes that differ in any
@@ -1298,7 +1423,11 @@ def check_trace(what: str, scene, samples, key, tcfg, dim, tag, *,
     both in turns (TRACE_TURNS, CUDA events around the whole call), the
     kernel's device time (``torch.profiler``, two windows), its bound
     (:func:`trace_bound`), its SIMT efficiency (:func:`simt_efficiency`),
-    and the grids' pre-pass of the list's scene (:func:`check_grids`)."""
+    and the grids' pre-pass of the list's scene (:func:`check_grids`).
+    ``turns`` without "wavefront": the wavefront's time is that of its one
+    run for the comparison (and the plain grids' that of theirs); with
+    ``held`` False the kernel is only timed (its comparison made on
+    another list)."""
     args = (scene.volume, scene.tf, scene.tf_scattering, samples, key, tcfg)
 
     def trace(method, **kw):
@@ -1315,47 +1444,54 @@ def check_trace(what: str, scene, samples, key, tcfg, dim, tag, *,
     got = trace("cuda")
     torch.cuda.synchronize()
     launches = TRACE.launches - before
-    want = trace("wavefront")
-    torch.cuda.synchronize()
-    if TRACE.launches - before != launches or launches != (
-            -(-n // chunk) if chunk else 1):
+    if launches != (-(-n // chunk) if chunk else 1):
         raise AssertionError(f"{what}: {launches} kernel launches")
-    differ = int(trace_lanes_differ(got, want).sum())
-    gp, wp = (r[0] if isinstance(r, tuple) else r for r in (got, want))
-    lv_got = splat.splat_all(gp, dim, method="cuda")
-    lv_want = splat.splat_all(wp, dim, method="cuda")
-    err = rel_l1(lv_got, lv_want)
-    abs_err = float((lv_got - lv_want).abs().max())
-    deposited = int(used_slots(gp).sum())
-    msg = ""
-    stats_equal = True
-    if opts.get("return_stats"):
-        g, w = got[1], want[1]
-        stats_equal = (g["wavefront_iters"] == w["wavefront_iters"]
-                       and torch.equal(g["active_history"],
-                                       w["active_history"])
-                       and torch.equal(g["mean_active_frac"],
-                                       w["mean_active_frac"])
-                       and g["stage_widths"] == w["stage_widths"])
-        msg = (f"; statistics equal {stats_equal} ({g['wavefront_iters']} "
-               f"flights, mean active fraction "
-               f"{float(g['mean_active_frac']):.6f})")
-    if opts.get("record_events"):
-        msg += f"; {int(got[1].counts.sum())} tests on the tape"
-    print(f"trace kernel vs wavefront, {what}: {differ} of {n} lanes differ "
-          f"in any bit, {deposited} deposits, light volume rel L1 "
-          f"{err:.3e}, {launches} launch(es){msg} ({tag})")
-    if differ > TRACE_MAX_LANES_DIFFER * n or not err <= TRACE_LV_REL_L1 \
-            or not stats_equal or deposited <= 0:
-        raise AssertionError(f"{what}: the kernel disagrees with the "
-                             "wavefront loop")
-    res = {"lanes": n, "lanes_differing": differ, "deposits": deposited,
-           "light_volume_rel_l1": err, "max_abs_err": abs_err,
-           "launches": launches}
+    plain_once = None
+    if held:
+        want, plain_once = timed_once(lambda: trace("wavefront"))
+        if TRACE.launches - before != launches:
+            raise AssertionError(f"{what}: the wavefront launched the "
+                                 "kernel")
+        differ = int(trace_lanes_differ(got, want).sum())
+        gp, wp = (r[0] if isinstance(r, tuple) else r for r in (got, want))
+        lv_got = splat.splat_all(gp, dim, method="cuda")
+        lv_want = splat.splat_all(wp, dim, method="cuda")
+        err = rel_l1(lv_got, lv_want)
+        abs_err = float((lv_got - lv_want).abs().max())
+        deposited = int(used_slots(gp).sum())
+        msg = ""
+        stats_equal = True
+        if opts.get("return_stats"):
+            g, w = got[1], want[1]
+            stats_equal = (g["wavefront_iters"] == w["wavefront_iters"]
+                           and torch.equal(g["active_history"],
+                                           w["active_history"])
+                           and torch.equal(g["mean_active_frac"],
+                                           w["mean_active_frac"])
+                           and g["stage_widths"] == w["stage_widths"])
+            msg = (f"; statistics equal {stats_equal} "
+                   f"({g['wavefront_iters']} flights, mean active fraction "
+                   f"{float(g['mean_active_frac']):.6f})")
+        if opts.get("record_events"):
+            msg += f"; {int(got[1].counts.sum())} tests on the tape"
+        print(f"trace kernel vs wavefront, {what}: {differ} of {n} lanes "
+              f"differ in any bit, {deposited} deposits, light volume rel "
+              f"L1 {err:.3e}, {launches} launch(es){msg} ({tag})")
+        if differ > TRACE_MAX_LANES_DIFFER * n \
+                or not err <= TRACE_LV_REL_L1 or not stats_equal \
+                or deposited <= 0:
+            raise AssertionError(f"{what}: the kernel disagrees with the "
+                                 "wavefront loop")
+        res = {"lanes": n, "lanes_differing": differ, "deposits": deposited,
+               "light_volume_rel_l1": err, "max_abs_err": abs_err,
+               "launches": launches, "plain_once_ms": plain_once}
+    else:
+        res = {"lanes": n, "launches": launches}
     if not timed:
         return res
-    runs = [(m, cuda_ms(lambda m=m: trace(m), reps=2)) for m in TRACE_TURNS]
-    windows = [device_ms("trace", lambda: trace("cuda"), reps=3)
+    runs = [(m, cuda_ms(lambda m=m: trace(m), reps=2)) for m in turns]
+    records = "trace, TFs in device memory" if TRACE.tf_global else "trace"
+    windows = [device_ms(records, lambda: trace("cuda"), reps=3)
                for _ in range(2)]
     dev_ms = statistics.median(windows)
     if dev_ms == 0.0:
@@ -1371,7 +1507,8 @@ def check_trace(what: str, scene, samples, key, tcfg, dim, tag, *,
     trace("cuda")
     shape = TRACE.last_shape
     simt = simt_efficiency(c, scene.volume, samples, key, ids)
-    plain = statistics.median(t for m, t in runs if m == "wavefront")
+    walls = [t for m, t in runs if m == "wavefront"]
+    plain = statistics.median(walls) if walls else plain_once
     call = statistics.median(t for m, t in runs if m == "cuda")
     print(f"trace {what}: in turns " + ", ".join(
         f"{m} {t:.3f} ms" for m, t in runs)
@@ -1385,14 +1522,18 @@ def check_trace(what: str, scene, samples, key, tcfg, dim, tag, *,
         f"{bound['busiest_pipe']}, by pipe " + ", ".join(
             f"{k} {v:.4f}" for k, v in bound["pipe_ms"].items())
         + f" ms), {bound['bound_ms'] / dev_ms:.1%} of it; SIMT efficiency "
-        f"{simt['simt_efficiency']:.3f} ({tag})")
+        f"{simt['simt_efficiency']:.3f}"
+        + ("" if walls or plain_once is None else
+           f"; the wavefront's one run {plain_once:.3f} ms") + f" ({tag})")
     res.update({"ms": dev_ms, "call_ms": call, "plain_ms": plain,
                 "in_turns": runs, "launch": shape._asdict(),
+                "tf_global": TRACE.tf_global,
                 "device_ms_windows": windows, "simt": simt,
                 "flights": stats["wavefront_iters"],
                 "mean_active_frac": float(stats["mean_active_frac"]),
                 **bound})
-    res["grids"] = check_grids(what, scene.volume, scene.tf, tcfg, tag)
+    res["grids"] = check_grids(what, scene.volume, scene.tf, tcfg, tag,
+                               plain_reps=3 if walls else 0, held=held)
     return res
 
 
@@ -1404,8 +1545,9 @@ def trace_kernel_phase(scene, config, state, dev, tag) -> dict:
     lane ids, with a clip box, in chunks, and on one rank's shard of 2
     with global lane ids; the default frame's and the retrace's times in
     turns with the wavefront; the host waits of one trace (none) and with
-    the statistics (one, the read of the flights); the grids' pre-pass at
-    transfer functions of 17, 64 and 256 points; one trace call broken
+    the statistics (one, the read of the flights); the kernel and the
+    grids' pre-pass at transfer functions of 17, 64, 256 and 40,000
+    points (:func:`trace_tf_sizes`); one trace call broken
     down under the profiler (through the kernels, with its grids given,
     and the plain grids, which every trace built op by op before the
     pre-pass); then frames, a
@@ -1469,11 +1611,9 @@ def trace_kernel_phase(scene, config, state, dev, tag) -> dict:
             waits["trace with return_stats"].values()) > 1:
         raise AssertionError("the kernel path waits for the card")
 
-    # The grids' pre-pass at transfer functions of 17, 64 and 256 points.
-    for p in TF_POINTS:
-        res[f"grids, {p}-point TF"] = {"grids": check_grids(
-            f"default frame, a {p}-point TF", scene.volume,
-            many_point_tf(scene.tf, p), tc, tag)}
+    # The trace kernel and the grids' pre-pass at transfer functions of
+    # 17, 64, 256 and GLOBAL_TF_POINTS points.
+    res.update(trace_tf_sizes(scene, samples, key, tc, dim, tag))
 
     # One trace call broken down: through the kernels, with its grids
     # given (the call's other work), and the plain grids, which every
@@ -1560,6 +1700,59 @@ def trace_kernel_phase(scene, config, state, dev, tag) -> dict:
                                   "correlated_step_host_waits":
                                       dict(step_waits)},
             "end_to_end_in_turns": turns}
+
+
+# Both transfer functions of this many points: past a block's shared
+# memory, so the kernels read them from device memory. Timed here; the
+# plain versions' where chains are an operator chain a segment, 40,000
+# long (the wavefront took 30 s for 2 flights, the plain grids 20 s on an
+# H100), so tests/test_torch_trace_kernel.py's card cases hold them there.
+GLOBAL_TF_POINTS = 40000
+
+
+def trace_tf_sizes(scene, samples, key, tc, dim, tag) -> dict:
+    """The trace kernel and the grids' pre-pass on the default frame's list
+    with its transfer function replaced by one of 17, 64 and 256 points
+    (:func:`many_point_tf`; in shared memory), each held against the
+    wavefront and the plain grids and timed beside its bound
+    (:func:`check_trace`); the kernels' twins that read the transfer
+    functions from device memory, with the scene's own (a limit of 0
+    bytes), held against the wavefront and the plain grids; and both
+    transfer functions of GLOBAL_TF_POINTS points (read from device
+    memory), timed."""
+    out = {}
+    saved = wt.shared_limit
+    wt.shared_limit = lambda index, kernel: 0
+    try:
+        check_trace("default frame, its TFs read from device memory, "
+                    "return_stats", scene, samples, key, tc, dim, tag,
+                    return_stats=True)
+        out["TFs in device memory"] = check_trace(
+            "default frame, its TFs read from device memory", scene, samples,
+            key, tc, dim, tag, timed=True, turns=PLAIN_ONCE)
+        if not (TRACE.tf_global and GRIDS.tf_global):
+            raise AssertionError("a limit of 0 bytes kept the TFs in shared "
+                                 "memory")
+    finally:
+        wt.shared_limit = saved
+    for p in TF_POINTS:
+        sc = dataclasses.replace(scene, tf=many_point_tf(scene.tf, p))
+        out[f"{p}-point TF"] = check_trace(
+            f"default frame, a {p}-point TF", sc, samples, key, tc, dim, tag,
+            timed=True, turns=PLAIN_ONCE)
+        if TRACE.tf_global or GRIDS.tf_global:
+            raise AssertionError(f"a {p}-point TF left shared memory")
+    p = GLOBAL_TF_POINTS
+    sc = dataclasses.replace(
+        scene, tf=many_point_tf(scene.tf, p),
+        tf_scattering=many_point_tf(scene.tf_scattering, p, seed=13))
+    timed = check_trace(f"default frame, two {p}-point TFs", sc, samples,
+                        key, tc, dim, tag, timed=True, turns=PLAIN_ONCE,
+                        held=False)
+    if not (TRACE.tf_global and GRIDS.tf_global):
+        raise AssertionError(f"two {p}-point TFs stayed in shared memory")
+    out[f"two {p}-point TFs"] = timed
+    return out
 
 
 def trace_row(phase: dict, main_launches: int, extra: dict) -> dict:
@@ -1804,7 +1997,8 @@ def sweep_close(got, want, what: str, rtol: float = SWEEP_RTOL,
 
 
 def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
-                timed: bool = False, columns: slice | None = None) -> dict:
+                timed: bool = False, columns: slice | None = None,
+                whole_image: bool = True) -> dict:
     """The forward kernel against the plain loop on one render's scans,
     one launch per sweep (``columns``: on that slice of the base grid's
     columns, as a rank scans them, and equal bit for bit to the whole
@@ -1814,7 +2008,9 @@ def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
     pre-pass's and the march's apart, the call's and the plain loop's
     (CUDA events) and the bounds, per render. Each scan's forward is also
     run alone, its planes held against their plain version
-    (check_planes)."""
+    (check_planes). Without ``whole_image`` the image is not rendered by
+    the plain loop again (the scans it warps are held), and the plain
+    loop's time is that of its scans for the comparison."""
     axis, vol_p, light_p, scans = sweep_render.sweep_plan(
         volume, light_volume, camera, rc)
     amb = rc.ambient
@@ -1825,7 +2021,7 @@ def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
 
     res = {"sweeps": len(scans), "rays": [], "planes": [], "prepass": [],
            "tf_points": tf.positions.shape[0]}
-    parts = []
+    parts, plain_scans = [], []
     for i, (sched, u, v) in enumerate(scans):
         whole = None
         if columns is not None:
@@ -1840,7 +2036,8 @@ def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
         if made != (1, 1):
             raise AssertionError(f"{what}: {made} pre-pass and march "
                                  "launches for one scan")
-        want = scan("torch", sched, u, v)
+        want, plain_ms = timed_once(lambda: scan("torch", sched, u, v))
+        plain_scans.append(plain_ms)
         res[f"sweep {i}"] = sweep_close(
             got, want, f"sweep kernel vs plain loop, {what}, sweep {i} "
             f"({v.shape[0]}x{u.shape[0]} rays x {sched.za.shape[0]} planes)")
@@ -1859,7 +2056,7 @@ def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
                                      "values than the whole scan")
     res["max_abs_err"] = max(res[f"sweep {i}"]["max_abs_err"]
                              for i in range(len(scans)))
-    if columns is None:
+    if columns is None and whole_image:
         before = (SWEEP_PREP.launches, SWEEP_FWD.launches)
         img = sweep_render.sweep_render(volume, tf, light_volume, camera, rc,
                                         method="cuda")
@@ -1891,7 +2088,8 @@ def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
     if min(prep_ms, march_ms) == 0.0:
         raise AssertionError("torch.profiler showed no device time")
     call = cuda_ms(lambda: render("cuda"), reps=5)
-    plain = cuda_ms(lambda: render("torch"), reps=1, warmup=0)
+    plain = cuda_ms(lambda: render("torch"), reps=1, warmup=0) \
+        if whole_image else sum(plain_scans)
     consts = [sweep_render.scan_constants(vol_p, light_p, *p) for p in parts]
     prep_plain = cuda_ms(lambda: [ss._prepare_planes_torch(
         vol_p, light_p, c, u, v, 0, c.fz.shape[0])
@@ -2126,8 +2324,22 @@ def held_off_kinks(got, want, under, what: str, kinks: int,
     return res
 
 
+# The backward's plain versions that time_sweep_grad holds the kernels to
+# (see there); at many TF points they are long where-chains of operators a
+# plane (10 s each at 64 points, 35-41 s at 256 on an H100), so the run
+# holds all three up to GRAD_HELD_POINTS points and none above, where it
+# times the kernels and holds the fold bit for bit: check_sweep_grad
+# holds the whole backward at 64 points against the plain loop's own, and
+# tests/test_torch_sweep_kernel.py's card cases hold it at 256. Above
+# GRAD_HELD_POINTS the forward's image is not rendered by the plain loop
+# again either (check_sweep's ``whole_image``).
+GRAD_FORMS = ("chunked", "taps", "products")
+GRAD_HELD_POINTS = 17
+
+
 def time_sweep_grad(what: str, volume, tf, light_volume, camera, rc, weight,
-                    tag, time_plain: bool = False) -> dict:
+                    tag, time_plain: bool = False,
+                    forms: tuple = GRAD_FORMS) -> dict:
     """The backward kernels alone on the render's first sweep, for the
     image's own cotangent of the intermediate: all four gradients within
     the backward's tolerance of the plain version that runs as the kernels
@@ -2135,7 +2347,8 @@ def time_sweep_grad(what: str, volume, tf, light_volume, camera, rc, weight,
     kernels' taps, their row scatter and fold) and of the plain loop on
     the kernels' samples (``_scan_planes_grad_torch`` with the prepared
     planes: one pass, the hat matrices' scatter); and of the plain loop
-    itself (samples from hat-matrix products): with ``time_plain`` every
+    itself (samples from hat-matrix products), each where ``forms`` names
+    it ("chunked", "taps", "products"): with ``time_plain`` every
     element, else every element of the volume's, the light volume's and
     the colours' gradients that no sample of ``tf_kinks`` reaches (where a
     sample lies on a TF point, a last bit picks the segment whose slope its
@@ -2171,7 +2384,8 @@ def time_sweep_grad(what: str, volume, tf, light_volume, camera, rc, weight,
             vol_p, light_p, tf, c, u, v, amb, inter, g_inter)
 
     grads, scratch = ss._backward(*kargs)
-    bare = {name: sweep_close(g, w, f"backward kernels vs "
+    bare = {} if "chunked" not in forms else {
+        name: sweep_close(g, w, f"backward kernels vs "
                               f"_scan_planes_grad_chunked_torch, {what}, "
                               f"{points} TF points: {name}", SWEEP_GRAD_RTOL,
                               SWEEP_GRAD_ATOL_REL)
@@ -2179,9 +2393,10 @@ def time_sweep_grad(what: str, volume, tf, light_volume, camera, rc, weight,
                                   sweep_render._scan_planes_grad_chunked_torch(
                                       vol_p, light_p, tf, c, u, v, amb, inter,
                                       g_inter))}
-    prepared = ss._prepare_planes_torch(vol_p, light_p, c, u, v, 0,
-                                        c.fz.shape[0])
-    by_taps = {name: sweep_close(g, w, f"backward kernels vs "
+    prepared = None if not ({"taps", "products"} & set(forms)) else \
+        ss._prepare_planes_torch(vol_p, light_p, c, u, v, 0, c.fz.shape[0])
+    by_taps = {} if "taps" not in forms else {
+        name: sweep_close(g, w, f"backward kernels vs "
                                  f"_scan_planes_grad_torch on the kernels' "
                                  f"samples, {what}, {points} TF points: "
                                  f"{name}", SWEEP_GRAD_RTOL,
@@ -2190,9 +2405,13 @@ def time_sweep_grad(what: str, volume, tf, light_volume, camera, rc, weight,
                                      sweep_render._scan_planes_grad_torch(
                                          vol_p, light_p, tf, c, u, v, amb,
                                          inter, g_inter, planes=prepared))}
-    kinked = None if time_plain else tf_kinks(vol_p, tf, c, u, v, prepared)
-    by_products = {} if time_plain else {"kinked_samples": kinked["samples"]}
-    for name, g, w in zip(GRAD_NAMES, grads, plain()):
+    products = "products" in forms
+    kinked = None if time_plain or not products else tf_kinks(
+        vol_p, tf, c, u, v, prepared)
+    by_products = {} if time_plain or not products else {
+        "kinked_samples": kinked["samples"]}
+    for name, g, w in zip(GRAD_NAMES, grads,
+                          plain() if products else ()):
         against = (f"backward kernels vs _scan_planes_grad_torch, {what}, "
                    f"{points} TF points: {name}")
         by_products[name] = sweep_close(
@@ -2261,7 +2480,9 @@ def time_sweep_grad(what: str, volume, tf, light_volume, camera, rc, weight,
             "prepass_ms": prep_ms, "march_ms": march_ms, "fold_ms": fold_ms,
             "call_ms": call, **plains, **bound,
             "share_of_bound": bound["bound_ms"] / dev_ms,
-            "bare_max_abs_err": max(r["max_abs_err"] for r in bare.values()),
+            "plain_forms_held": list(forms),
+            "bare_max_abs_err": max((r["max_abs_err"] for r in bare.values()),
+                                    default=None),
             "prepass_bound": {**prep, "share_of_bound":
                               prep["bound_ms"] / prep_ms},
             "fold": {"ms": fold_ms, "max_abs_err": fold_err,
@@ -2355,7 +2576,7 @@ def sweep_kernel_phase(scene, config, state, dev, tag) -> dict:
     for n, tf_n in many.items():
         res[f"{n}-point TF"] = check_sweep(
             f"default frame, a {n}-point TF", vol, tf_n, lv, camera, rc, tag,
-            timed=True)
+            timed=True, whole_image=n <= GRAD_HELD_POINTS)
     tf64 = many[64]
 
     # entry.py's forward step, counted.
@@ -2391,7 +2612,7 @@ def sweep_kernel_phase(scene, config, state, dev, tag) -> dict:
     for n, tf_n in many.items():
         res[f"grad timed {n}-point TF"] = time_sweep_grad(
             "the default frame's image loss", vol, tf_n, lv, camera, rc,
-            weight, tag)
+            weight, tag, forms=GRAD_FORMS if n <= GRAD_HELD_POINTS else ())
 
     # End to end, the kernels against the plain loop, in turns; the host
     # waits of one render in each form.
@@ -2577,11 +2798,12 @@ def batch_deposits(before, after, config) -> tuple:
 
 
 def check_on_list(what: str, pos, pw, r: float, dim, reps: int,
-                  tag) -> tuple:
+                  tag, plain_reps: int = 3) -> tuple:
     """Both designs and the plain version on one deposit list: held
-    together, then timed in turns beside the bound. Returns (the numbers,
-    the plain version's grid)."""
-    ref = sp.splat_product_torch(pos, pw, r, dim)
+    together, then timed in turns beside the bound, the plain version over
+    ``plain_reps`` calls (with 0, its one call of the comparison). Returns
+    (the numbers, the plain version's grid)."""
+    ref, plain = timed_once(lambda: sp.splat_product_torch(pos, pw, r, dim))
     errs = {}
     for design, fn in DESIGNS.items():
         got = fn(pos, pw, r, dim)
@@ -2590,7 +2812,8 @@ def check_on_list(what: str, pos, pw, r: float, dim, reps: int,
     res = time_on_list(what, pos, pw, r, dim, reps, tag)
     res["max_abs_err"] = errs
     res["plain_ms"] = cuda_ms(
-        lambda: sp.splat_product_torch(pos, pw, r, dim), reps=3)
+        lambda: sp.splat_product_torch(pos, pw, r, dim),
+        reps=plain_reps) if plain_reps else plain
     print(f"plain splat on {what}: {res['plain_ms']:.3f} ms ({tag})")
     return res, ref
 
@@ -2863,6 +3086,317 @@ def correlated_large(scene, config, state, dev, tag) -> dict:
             "on_signed": on_signed, "first_run_ms": ms}
 
 
+# --- BASELINE config 5 as written, and config 2 -----------------------------
+
+# Config 5's intermediate image is held to the plain sweep loop at every
+# CONFIG5_ROW_STRIDE-th of its rows: the rays are independent, and the
+# image is the warp of this intermediate image.
+CONFIG5_ROW_STRIDE = 8
+CONFIG5_LANES = 2 * 2048 * 1024
+CONFIG2_PASSES = 16  # bench.py:301
+# Config 2's running mean against the float64 mean of its passes' own
+# light volumes: one float32 rounding of the mean a pass.
+CONFIG2_ACCUM_REL_L1 = 1e-5
+GIB = 2 ** 30
+
+
+def staged(what: str, fn, tag, stages: dict):
+    """One call of ``fn``, printed and kept in ``stages``: its milliseconds
+    from CUDA events and the peak device memory allocated during it
+    (``max_memory_allocated`` after a reset). Returns fn's result."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = timed_once(fn)
+    peak = torch.cuda.max_memory_allocated()
+    stages[what] = {"ms": ms, "peak_bytes": peak}
+    print(f"{what}: {ms:.1f} ms, peak memory {peak / GIB:.3f} GiB ({tag})")
+    return out
+
+
+def sweep_chunks(scans, vol_p, light_p) -> list:
+    """The chunks of planes of each scan of a render, under the forward's
+    PLANE_BUDGET: [(planes, bytes a plane, chunks)]."""
+    out = []
+    for sched, u, v in scans:
+        per = ss.plane_bytes(*vol_p.shape[1:], *light_p.shape[1:3],
+                             u.shape[0], v.shape[0])
+        planes = sched.za.shape[0]
+        out.append((planes, per,
+                    len(ss.chunk_plan(planes, per, ss.PLANE_BUDGET))))
+    return out
+
+
+def check_sweep_rows(what: str, scene, state, config, img, tag) -> dict:
+    """A render of more than one chunk of planes: each scan's intermediate
+    image from the kernels against the plain loop's at every
+    CONFIG5_ROW_STRIDE-th row (rtol 1e-4, atol 1e-6 of the largest, NaN
+    where it has NaN); the image equal bit for bit to the same render with
+    PLANE_BUDGET raised so that one chunk holds every plane; the forward's
+    device time (its pre-passes and marches) beside its bound."""
+    rc = config.render
+    lv = state.light_volume_accum
+    _, vol_p, light_p, scans = sweep_render.sweep_plan(
+        scene.volume, lv, scene.camera, rc)
+    plan = sweep_chunks(scans, vol_p, light_p)
+    chunks = sum(c for _, _, c in plan)
+    res = {"scans": len(scans), "chunks": chunks, "plan": plan,
+           "row_stride": CONFIG5_ROW_STRIDE}
+
+    def scan(method, sched, u, v):
+        return sweep_render._scan_planes(vol_p, light_p, scene.tf, sched, u,
+                                         v, rc.ambient, method)
+
+    res["max_abs_err"] = 0.0
+    for i, (sched, u, v) in enumerate(scans):
+        got = scan("cuda", sched, u, v)
+        rows = torch.arange(0, v.shape[0], CONFIG5_ROW_STRIDE,
+                            device=v.device)
+        want, plain_ms = timed_once(lambda: scan("torch", sched, u, v[rows]))
+        close = sweep_close(
+            got[rows], want, f"sweep kernels vs plain loop, {what}, sweep "
+            f"{i} ({v.shape[0]}x{u.shape[0]} rays x {sched.za.shape[0]} "
+            f"planes in {plan[i][2]} chunks), every "
+            f"{CONFIG5_ROW_STRIDE}th of its rows")
+        res[f"sweep {i}"] = {**close, "plain_rows_ms": plain_ms,
+                             "rows": int(rows.shape[0])}
+        print(f"the plain loop on those {rows.shape[0]} rows: "
+              f"{plain_ms:.1f} ms ({tag})")
+        res["max_abs_err"] = max(res["max_abs_err"], close["max_abs_err"])
+        del got, want
+
+    # One chunk for every plane: the same image, bit for bit.
+    saved = ss.PLANE_BUDGET
+    ss.PLANE_BUDGET = 1 << 62
+    try:
+        before = SWEEP_FWD.launches
+        one = step.render_state(scene, state, config)
+        torch.cuda.synchronize()
+        one_launches = SWEEP_FWD.launches - before
+    finally:
+        ss.PLANE_BUDGET = saved
+    same = bool(_same_bits(img.reshape(-1), one.reshape(-1)).all())
+    print(f"{what}: the image of {chunks} chunks of planes equals the image "
+          f"of one chunk ({one_launches} forward launch(es)) bit for bit: "
+          f"{same}")
+    if not same or one_launches != len(scans) or chunks <= len(scans):
+        raise AssertionError(f"{what}: the chunks of planes change the image"
+                             ", or the render was not cut into chunks")
+    del one
+
+    key = f"sweep in {chunks} chunks"
+    RECORDS[key] = {"sweep_planes_kernel": chunks, "sweep_scan_kernel": chunks}
+    per = device_ms(key, lambda: [scan("cuda", *sc) for sc in scans], reps=3,
+                    by_name=True, uneven=True)
+    dev_ms = sum(per.values())
+    if min(per.values()) == 0.0:
+        raise AssertionError("torch.profiler showed no device time")
+    call = cuda_ms(lambda: step.render_state(scene, state, config), reps=3)
+    tf_points = scene.tf.positions.shape[0]
+    bounds = [sweep_bound(vol_p, light_p, v.shape[0], u.shape[0],
+                          sched.za.shape[0], tf_points)
+              for sched, u, v in scans]
+    prep = [prepass_bound(vol_p, light_p, sweep_render.scan_constants(
+        vol_p, light_p, sched, u, v), u.shape[0], v.shape[0])
+        for sched, u, v in scans]
+    bound = sum(b["bound_ms"] for b in bounds)
+    prep_bound = sum(b["bound_ms"] for b in prep)
+    print(f"sweep {what}: forward device time {dev_ms:.4f} ms (pre-passes "
+          f"{per['sweep_planes_kernel']:.4f}, marches "
+          f"{per['sweep_scan_kernel']:.4f}, {chunks} chunks); render_state "
+          f"{call:.3f} ms; bound {bound:.4f} ms ({bounds[0]['bound_by']}: "
+          f"{sum(b['samples'] for b in bounds)} samples), "
+          f"{bound / dev_ms:.1%} of it; pre-pass bound {prep_bound:.4f} ms "
+          f"({prep[0]['bound_by']}), "
+          f"{prep_bound / per['sweep_planes_kernel']:.1%} of it ({tag})")
+    res.update({"one_chunk_bit_equal": same, "ms": dev_ms,
+                "prepass_ms": per["sweep_planes_kernel"],
+                "march_ms": per["sweep_scan_kernel"], "call_ms": call,
+                "bound_ms": bound, "bound_by": bounds[0]["bound_by"],
+                "prepass_bound_ms": prep_bound})
+    return res
+
+
+def config5_phase(dev, tag) -> dict:
+    """BASELINE config 5 as written (:func:`build_config5`: 512^3, two
+    directional lights, 4,194,304 photons x 4 interactions, 1024^2) through
+    the entry points, with every count set to 0 just before and read just
+    after: ``init_state`` (``emit_all``: each light's samples under its own
+    ``fold_in``), ``full_trace_step`` (the grids' pre-pass over 64^3 cells,
+    the trace kernel compacting and refilling above the resident lanes,
+    the binned and tiled splat), ``render_state`` (a sweep of more than one
+    chunk of planes), then, after the TF edit, ``build_importance_grid``
+    and ``correlated_step_scalable`` (10% of the photons, 4 quadrature
+    samples). Each stage's time and peak memory; the frame's checks
+    (:func:`expect_frame`: the light volume against the plain splat of its
+    own deposits), both splat designs on them, the trace kernel against the
+    wavefront (timed), the sweep against the plain loop and against one
+    chunk (:func:`check_sweep_rows`), and the correlated step's light
+    volume against the state's less the plain splat of the removed list
+    plus that of the added list."""
+    t0 = time.perf_counter()
+    stages = {}
+    scene, config = staged(
+        "config 5: build_config5 (the 512^3 cloud made on the host)",
+        build_config5, tag, stages)
+    if scene.device != dev:
+        raise AssertionError(f"config 5's scene lies on {scene.device}")
+    dim = step.light_volume_shape(config)
+    reset_counts()
+    state0 = staged("config 5 stage init_state (emit_all, two lights)",
+                    lambda: step.init_state(scene, config), tag, stages)
+    state = staged("config 5 stage full_trace_step",
+                   lambda: step.full_trace_step(scene, state0, config), tag,
+                   stages)
+    img = staged("config 5 stage render_state",
+                 lambda: step.render_state(scene, state, config), tag,
+                 stages)
+    launches = read_counts()
+    del state0
+    samples = state.light_samples
+    half = samples.n // 2
+    lights = [int(torch.unique(samples.directions[sl], dim=0).shape[0])
+              for sl in (slice(0, half), slice(half, None))]
+    if samples.n != CONFIG5_LANES or lights != [1, 1] or torch.equal(
+            samples.directions[0], samples.directions[-1]):
+        raise AssertionError(f"config 5: {samples.n} samples, directions "
+                             f"by light {lights}")
+    _, vol_p, light_p, scans = sweep_render.sweep_plan(
+        scene.volume, state.light_volume_accum, scene.camera, config.render)
+    chunks = sum(c for _, _, c in sweep_chunks(scans, vol_p, light_p))
+    del vol_p, light_p, scans
+    print(f"config 5 frame: {samples.n} light samples from two lights, "
+          f"{chunks} chunks of sweep planes, launches {launches} ({tag})")
+    expect_frame("config 5 frame", config, state, img, dev, launches,
+                 sweeps=chunks)
+    on_frame, _ = check_on_list(
+        "the config 5 frame's deposits",
+        *splat.product_deposits(state.photons), state.photons.radius_rel,
+        dim, 3, tag, plain_reps=0)
+    torch.cuda.empty_cache()
+    trace = check_trace(
+        f"config 5 frame ({samples.n} lanes x "
+        f"{config.tracer.max_interactions}, 512^3, two lights)", scene,
+        *frame_list(state)[:2], config.tracer, dim, tag, timed=True,
+        turns=PLAIN_ONCE)
+    torch.cuda.empty_cache()
+    sweep = check_sweep_rows("config 5 frame", scene, state, config, img,
+                             tag)
+    del img
+    torch.cuda.empty_cache()
+
+    edited = edit_tf(scene)
+    grid = staged("config 5 stage build_importance_grid (after the TF edit)",
+                  lambda: step.build_importance_grid(edited, config), tag,
+                  stages)
+    budget = step.recompute_budget(config, samples.n)
+    reset_counts()
+    after = staged(
+        f"config 5 stage correlated_step_scalable (budget {budget}, "
+        f"{config.recompute.importance_quadrature_samples} quadrature "
+        "samples)", lambda: step.correlated_step_scalable(
+            edited, state, config, grid, budget), tag, stages)
+    corr_launches = read_counts()
+    slots = state.photons.max_interactions * budget
+    r = f32_scalar(config.tracer.radius_rel)
+    expect_launches("config 5 correlated_step_scalable", corr_launches,
+                    [sp.choose_design(slots, r, dim)] * 2, traces=1)
+    pos, pw = batch_deposits(state, after, config)
+    removed = sp.splat_product_torch(pos[:slots], -pw[:slots], r, dim)
+    added = sp.splat_product_torch(pos[slots:], pw[slots:], r, dim)
+    corr_err = compare(
+        after.light_volume, state.light_volume - removed + added,
+        "config 5 correlated step: light volume (kernels) vs the state's "
+        "less the plain splat of the removed list plus the added list's")
+    print(f"config 5 correlated_step_scalable: {budget} of {samples.n} "
+          f"photons retraced, {after.n_remaining} remain; two splats of "
+          f"{slots} slots, launches {corr_launches} ({tag})")
+    del removed, added
+    on_added, _ = check_on_list(
+        f"the {slots} added slots of config 5's correlated_step_scalable",
+        pos[slots:], pw[slots:], r, dim, 5, tag)
+    del pos, pw, after, grid, edited, state, scene
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"config 5 took {wall:.1f} s")
+    return {"launches": launches, "correlated_launches": corr_launches,
+            "stages": stages, "on_frame": on_frame, "on_added": on_added,
+            "trace": trace,
+            "sweep": sweep, "chunks": chunks, "budget": budget,
+            "slots": slots, "correlated_max_abs_err": corr_err,
+            "wall_s": wall}
+
+
+def config2_phase(dev, tag) -> dict:
+    """BASELINE config 2 (:func:`build_config2`), as the reference's
+    ``run_config2`` runs it (bench.py:303-321): ``init_state``,
+    ``full_trace_step``, then CONFIG2_PASSES ``progressive_step`` passes,
+    each a fresh trace at the next Knaus-Zwicker radius folded into the
+    running mean, counted from just before the first stage to just after
+    the last. Per pass its time, the relative L1 change of the running
+    mean (bench.py:309-311), the radius and the direct splat's window. The
+    running mean must equal the float64 mean of the passes' own light
+    volumes within CONFIG2_ACCUM_REL_L1, and the last change must be below
+    the first."""
+    t0 = time.perf_counter()
+    scene, config = build_config2()
+    dim = step.light_volume_shape(config)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = step.full_trace_step(scene, step.init_state(scene, config),
+                                 config)
+    slots = state.photons.positions.shape[0] * state.photons.positions.shape[1]
+    designs = [sp.choose_design(slots, state.photons.radius_rel, dim)]
+    total = state.light_volume.double()
+    prev = state.light_volume_accum
+    passes = []
+    for k in range(1, CONFIG2_PASSES + 1):
+        state, ms = timed_once(
+            lambda: step.progressive_step(scene, state, config))
+        acc = state.light_volume_accum
+        change = float((acc - prev).abs().sum()
+                       / torch.clamp(acc.abs().sum(), min=1e-9))
+        r = state.photons.radius_rel
+        designs.append(sp.choose_design(slots, r, dim))
+        total += state.light_volume.double()
+        passes.append({"ms": ms, "rel_change": change, "radius": r,
+                       "window": sp.window_width(r, dim),
+                       "kernel_width": sp.kernel_width(r, dim),
+                       "design": designs[-1]})
+        print(f"config 2 pass {k}: {ms:.2f} ms; relative L1 change of the "
+              f"running mean {change:.4e}; radius {r:.6g}, the splat's "
+              f"window {passes[-1]['window']} cells (kernel width "
+              f"{passes[-1]['kernel_width']}), design {designs[-1]} ({tag})")
+        prev = acc
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(f"config 2: full_trace_step + {CONFIG2_PASSES} "
+                    "progressive_step", launches, designs)
+    mean = total / (CONFIG2_PASSES + 1)
+    acc = state.light_volume_accum
+    err = float((acc.double() - mean).abs().sum() / mean.abs().sum())
+    print(f"config 2: {CONFIG2_PASSES} passes of {slots} slots, running mean "
+          f"vs the float64 mean of the {CONFIG2_PASSES + 1} light volumes: "
+          f"rel L1 {err:.3e} (held to {CONFIG2_ACCUM_REL_L1:g}); change "
+          f"first {passes[0]['rel_change']:.4e}, last "
+          f"{passes[-1]['rel_change']:.4e}; launches {launches}; peak memory "
+          f"{peak / GIB:.3f} GiB; {time.perf_counter() - t0:.1f} s ({tag})")
+    if not (err <= CONFIG2_ACCUM_REL_L1 and bool(torch.isfinite(acc).all())
+            and state.photons.iteration == CONFIG2_PASSES
+            and passes[-1]["rel_change"] < passes[0]["rel_change"]):
+        raise AssertionError("config 2: the running mean is not the mean of "
+                             "its passes, or it does not converge")
+    on_last, _ = check_on_list(
+        f"config 2's last pass (radius {passes[-1]['radius']:.6g})",
+        *splat.product_deposits(state.photons), state.photons.radius_rel,
+        dim, 10, tag)
+    return {"launches": launches, "passes": passes, "accum_rel_l1": err,
+            "peak_bytes": peak, "slots": slots, "on_last": on_last,
+            "wall_s": time.perf_counter() - t0}
+
+
+
 # --- time-varying playback and every emission mode -------------------------
 
 
@@ -3039,7 +3573,8 @@ def playback_config4(dev, tag) -> dict:
     merged = tracer.merge_recomputed(old, retrace(), indices, valid)
     trace_check = check_trace(
         f"config 4 step 1 retrace of {budget} lanes", scene1, sub, key,
-        config.tracer, dim, tag, lane_ids=safe, timed=True)
+        config.tracer, dim, tag, lane_ids=safe, timed=True,
+        turns=PLAIN_ONCE)
     step_in_turns = []
     for m in TRACE_TURNS:
         with traced_by(m):
@@ -3182,7 +3717,8 @@ def guided_config3(dev, tag) -> dict:
                              pw, state.photons.radius_rel, dim, 32, tag)
     trace_check = check_trace(
         f"config 3 guided frame ({state.light_samples.n} lanes, 256^3)",
-        scene, *frame_list(state)[:2], guided.tracer, dim, tag, timed=True)
+        scene, *frame_list(state)[:2], guided.tracer, dim, tag, timed=True,
+        turns=PLAIN_ONCE)
     stages = {
         "build_importance_grid": lambda: step.build_importance_grid(
             scene, config),
@@ -4939,6 +5475,12 @@ def main() -> None:
     correlated = correlated_default(scene, config, state, dev, tag)
     check_small_correlated(dev)
 
+    # --- BASELINE config 5 as written (512^3, two lights, 4,194,304
+    # photons, a sweep of more than one chunk) and config 2 (16
+    # progressive passes), each counted ---
+    cfg5 = config5_phase(dev, tag)
+    cfg2 = config2_phase(dev, tag)
+
     # --- the tracer's forward options, the marcher, screen-space
     # importance, NEE, mesh spans, counted where they splat ---
     t_slice = time.perf_counter()
@@ -4993,7 +5535,7 @@ def main() -> None:
         f"large frame ({state.light_samples.n} lanes x "
         f"{config.tracer.max_interactions}, 256^3)", scene,
         *frame_list(state)[:2], config.tracer,
-        step.light_volume_shape(config), tag, timed=True)
+        step.light_volume_shape(config), tag, timed=True, turns=PLAIN_ONCE)
     torch.cuda.empty_cache()
     # The backward kernel on its 16,777,216 slots (no driven gradient runs
     # there: reported in the kernels row's by_list).
@@ -5006,6 +5548,7 @@ def main() -> None:
     correlated_big = correlated_large(scene, config, state, dev, tag)
     del scene, state
     torch.cuda.empty_cache()
+    on_frames["config 5 frame"] = cfg5["on_frame"]
     on_frames["default correlated step's delta"] = correlated["on_delta"]
     on_frames["large correlated step's added"] = correlated_big["on_added"]
     on_frames["config 4 playback step's delta"] = playback["on_delta"]
@@ -5061,6 +5604,26 @@ def main() -> None:
         correlated_big["on_added"]))
     rows[-1]["first_run_ms"] = correlated_big["first_run_ms"]
     rows[-1]["on_signed_list"] = correlated_big["on_signed"]
+    rows.append(delta_row(
+        "full_trace_step (config 5 as written: 512^3, two lights, "
+        f"{CONFIG5_LANES} photons)",
+        f"{cfg5['on_frame']['deposits']} deposit slots -> 65x65x65x3",
+        cfg5["launches"], 1, cfg5["on_frame"]))
+    rows[-1].update({"stages": cfg5["stages"],
+                     "sweep_chunks": cfg5["chunks"],
+                     "wall_s": cfg5["wall_s"]})
+    rows.append(delta_row(
+        "correlated_step_scalable (config 5)",
+        f"{cfg5['slots']} added (and as many removed) slots -> 65x65x65x3",
+        cfg5["correlated_launches"], 1, cfg5["on_added"]))
+    rows[-1]["light_volume_max_abs_err"] = cfg5["correlated_max_abs_err"]
+    rows.append(delta_row(
+        f"progressive_step (config 2, {CONFIG2_PASSES} passes after "
+        "full_trace_step)",
+        f"{cfg2['slots']} deposit slots of the last pass -> 65x65x65x3",
+        cfg2["launches"], CONFIG2_PASSES + 1, cfg2["on_last"]))
+    rows[-1].update({k: cfg2[k] for k in (
+        "passes", "accum_rel_l1", "peak_bytes", "wall_s")})
     rows.append(delta_row(
         "advance_time (config 4)",
         f"{playback['on_delta']['deposits']} signed delta slots -> "
@@ -5134,11 +5697,18 @@ def main() -> None:
                                   "trace_stats"]}
     more_traces = {"config 4 step 1 retrace": playback["trace_check"],
                    "config 3 guided frame": guided["trace_check"],
-                   "large frame": large_trace}
+                   "large frame": large_trace,
+                   "config 5 frame": cfg5["trace"]}
     rows.append(trace_row(traced, launches["trace_woodcock_cuda"],
                           more_traces))
     rows[-1]["config 4 advance_time in turns"] = playback["step_in_turns"]
     rows[-1]["config 1 demo trace"] = demo["trace_stats"]
+    rows[-1]["launches_by_path"] = {
+        "config 5 frame": cfg5["launches"]["trace_woodcock_cuda"],
+        "config 5 correlated_step_scalable": cfg5["correlated_launches"][
+            "trace_woodcock_cuda"],
+        f"config 2 (full_trace_step + {CONFIG2_PASSES} progressive_step)":
+            cfg2["launches"]["trace_woodcock_cuda"]}
     grids = "trace_grids"
     rows.append(grids_row(traced, {
         "full_trace_step + render_state (default frame)": launches[grids],
@@ -5148,7 +5718,12 @@ def main() -> None:
         "config 4 advance_time steps": playback["launches"][grids],
         "config 3 guided frame": guided["launches"][grids],
         "large frame": large_launches[grids],
-        "config 1 demo (two runs)": demo["launches"][grids]}, more_traces))
+        "config 1 demo (two runs)": demo["launches"][grids],
+        "config 5 frame": cfg5["launches"][grids],
+        "config 5 correlated_step_scalable": cfg5["correlated_launches"][
+            grids],
+        f"config 2 (full_trace_step + {CONFIG2_PASSES} progressive_step)":
+            cfg2["launches"][grids]}, more_traces))
     sweeps = "sweep_scan_forward"
     by_path = {
         "full_trace_step + render_state (default frame)": launches[sweeps],
@@ -5167,12 +5742,15 @@ def main() -> None:
         "config 1 demo (two runs)": demo["launches"][sweeps],
         "linear image loss gradient": grads["linear_launches"][sweeps],
         "trajectory_gradients": grads["launches"][sweeps],
-        "fit_tf_torch (12 steps)": grads["fit"]["launches"][sweeps]}
+        "fit_tf_torch (12 steps)": grads["fit"]["launches"][sweeps],
+        f"config 5 frame ({cfg5['chunks']} chunks of planes)": cfg5[
+            "launches"][sweeps]}
     rows.extend(sweep_rows(
         swept, by_path, launches["sweep_planes"],
         grads["launches"]["sweep_scan_backward"],
         grads["launches"]["sweep_fold"],
         {"config 3 guided frame": guided["sweep_check"],
+         "config 5 frame": cfg5["sweep"],
          "float16 frame": half["sweep_check"],
          "float16 light volume at 4 interactions (+inf texels)": half[
              "sweep_check_at_4_interactions"],

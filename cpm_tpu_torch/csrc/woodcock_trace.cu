@@ -36,7 +36,13 @@
 //   by compares against the points in shared memory, with one division:
 //   the where chain of the plain version keeps the last segment with
 //   x >= pos[s] (NaN compares false and keeps the first opacity), so the
-//   bits are the chain's;
+//   bits are the chain's. Where both transfer functions' points (8 bytes
+//   a point) and a compaction's staging would not fit in a block's shared
+//   memory, the wrapper launches the kernel's twin that reads the points
+//   and opacities from device memory instead (the same body as
+//   woodcock_trace_global_tf_kernel; for the grids,
+//   trace_grids_majorant_global_tf_kernel): the same compares on the same
+//   floats, so the same bits;
 // - the macrocell of a voxel index is a shift or a multiply-high by a
 //   reciprocal the wrapper computed, not an integer division by a runtime
 //   value (the indices are non-negative and below 2^32 / cell, where both
@@ -140,6 +146,8 @@ struct TraceArgs {
   int clipped;
   int record_events;  // E, 0 without a tape
   int compact_every;  // flights between two compactions, 0 for none
+  int tf_global;      // 1: the points read from device memory, opacities
+                      // contiguous (tf_stride = tfs_stride = 1)
   float vdims[3];     // (W, H, D)
   float cell_ext[3];  // texture extent of a macrocell, (x, y, z)
   float clip_lo[3];
@@ -165,6 +173,7 @@ struct GridArgs {
   int gz, gy, gx;
   int tf_n, tf_stride;
   int cell, ring, cap;
+  int tf_global;  // 1: the points read from device memory, tf_stride 1
   float tau;
 };
 
@@ -184,24 +193,37 @@ __device__ __forceinline__ float clamp(float x, float lo, float hi) {
   return (x != x) ? x : (x < lo ? lo : (x > hi ? hi : x));
 }
 
+// A point or opacity of a transfer function: from shared memory, or with
+// kGlobal through the read-only cache from device memory.
+template <bool kGlobal>
+__device__ __forceinline__ float tf_at(const float* p, int s) {
+  if constexpr (kGlobal) {
+    return __ldg(p + s);
+  } else {
+    return p[s];
+  }
+}
+
 // The piecewise-linear opacity of a transfer function's point list at x
 // (core/types.py:piecewise_opacity), its points and opacities in shared
-// memory: the where chain keeps the last segment s < n - 1 with
-// x >= pos[s], the first opacity where none holds (NaN compares false).
-// Found by compares, then that one segment's width, parameter, clip and
-// lerp, with the chain's operations in its order.
+// memory (in device memory with kGlobal): the where chain keeps the last
+// segment s < n - 1 with x >= pos[s], the first opacity where none holds
+// (NaN compares false). Found by compares, then that one segment's width,
+// parameter, clip and lerp, with the chain's operations in its order.
+template <bool kGlobal>
 __device__ __forceinline__ float tf_opacity(const float* pos,
                                             const float* opa, int n,
                                             float x) {
   int sel = -1;
 #pragma unroll 4
-  for (int s = 0; s + 1 < n; ++s) sel = x >= pos[s] ? s : sel;
-  if (sel < 0) return opa[0];
-  const float ps = pos[sel];
-  const float den = clamp_min(pos[sel + 1] - ps, 1e-12f);
+  for (int s = 0; s + 1 < n; ++s)
+    sel = x >= tf_at<kGlobal>(pos, s) ? s : sel;
+  if (sel < 0) return tf_at<kGlobal>(opa, 0);
+  const float ps = tf_at<kGlobal>(pos, sel);
+  const float den = clamp_min(tf_at<kGlobal>(pos, sel + 1) - ps, 1e-12f);
   const float t = clamp((x - ps) / den, 0.0f, 1.0f);
-  const float cs = opa[sel];
-  return cs + (opa[sel + 1] - cs) * t;
+  const float cs = tf_at<kGlobal>(opa, sel);
+  return cs + (tf_at<kGlobal>(opa, sel + 1) - cs) * t;
 }
 
 // A transfer function's points and its opacities (tf_stride floats apart
@@ -280,15 +302,21 @@ trace_grids_minmax_kernel(const GridArgs a) {
 // ring-dilated (min, max), windows clipped at the borders, clamped at 0,
 // times tau), the row's largest majorant, and each cell's distance along
 // the row to the nearest cell with a nonzero majorant (cap + 1 for none
-// within cap).
-__global__ void __launch_bounds__(kGridThreads)
-trace_grids_majorant_kernel(const GridArgs a) {
+// within cap). The points in shared memory after the row, or with
+// kTfGlobal read from device memory.
+template <bool kTfGlobal>
+__device__ __forceinline__ void majorant_row(const GridArgs& a) {
   extern __shared__ float sm[];  // [gx] majorants, [tf_n] points, opacities
   __shared__ float red[kGridThreads / 32];
   float* row = sm;
-  float* pos = sm + a.gx;
-  float* opa = pos + a.tf_n;
-  stage_tf(a.tf_pos, a.tf_opa, a.tf_stride, a.tf_n, pos, opa);
+  const float* pos = a.tf_pos;
+  const float* opa = a.tf_opa;
+  if constexpr (!kTfGlobal) {
+    float* spos = sm + a.gx;
+    stage_tf(a.tf_pos, a.tf_opa, a.tf_stride, a.tf_n, spos, spos + a.tf_n);
+    pos = spos;
+    opa = spos + a.tf_n;
+  }
   __syncthreads();
   const int cy = blockIdx.x, cz = blockIdx.y;
   const long long row0 = ((long long)cz * a.gy + cy) * a.gx;
@@ -309,11 +337,11 @@ trace_grids_majorant_kernel(const GridArgs a) {
         }
       }
     }
-    float m = tmax(tf_opacity(pos, opa, a.tf_n, lo),
-                   tf_opacity(pos, opa, a.tf_n, hi));
+    float m = tmax(tf_opacity<kTfGlobal>(pos, opa, a.tf_n, lo),
+                   tf_opacity<kTfGlobal>(pos, opa, a.tf_n, hi));
     for (int s = 0; s < a.tf_n; ++s) {
-      const float p = pos[s];
-      if (p >= lo && p <= hi) m = tmax(m, opa[s]);
+      const float p = tf_at<kTfGlobal>(pos, s);
+      if (p >= lo && p <= hi) m = tmax(m, tf_at<kTfGlobal>(opa, s));
     }
     const float maj = clamp_min(m, 0.0f) * a.tau;
     row[cx] = maj;
@@ -332,6 +360,16 @@ trace_grids_majorant_kernel(const GridArgs a) {
     }
     a.dx[row0 + cx] = best;
   }
+}
+
+__global__ void __launch_bounds__(kGridThreads)
+trace_grids_majorant_kernel(const GridArgs a) {
+  majorant_row<false>(a);
+}
+
+__global__ void __launch_bounds__(kGridThreads)
+trace_grids_majorant_global_tf_kernel(const GridArgs a) {
+  majorant_row<true>(a);
 }
 
 // Each cell's distance (ops/majorant.py:empty_distance_grid): the
@@ -516,7 +554,7 @@ __device__ float sample_phase(int type, const float wi[3], float g, float u1,
   return (kInv4Pi * (1.0f - g * g)) / (denom * denom);
 }
 
-// A transfer function's point list in shared memory.
+// A transfer function's point list, in shared memory or in device memory.
 struct Tf {
   const float* pos;
   const float* opa;
@@ -622,6 +660,7 @@ __device__ bool start_lane(const TraceArgs& a, int idx, float maj_global,
 
 // One flight of a live lane (the plain loop's body, ops/tracer.py); true
 // while the lane goes on: active, and its step below the step limit.
+template <bool kTfGlobal>
 __device__ __forceinline__ bool flight(const TraceArgs& a, const Tf& tf,
                                        const Tf& tfs, float maj_global,
                                        int* hist, unsigned* warp_flights,
@@ -732,14 +771,15 @@ __device__ __forceinline__ bool flight(const TraceArgs& a, const Tf& tf,
         }
       }
     }
-    opacity = tf_opacity(tf.pos, tf.opa, tf.n, vol);
+    opacity = tf_opacity<kTfGlobal>(tf.pos, tf.opa, tf.n, vol);
     // Acceptance against the local majorant: P = sigma / sigma_maj.
     collide = L.u[1] * maj_op < opacity;
     if (collide) {
       const bool first_done = L.flags & kFirstDone;
       first_event = !first_done;
       interact = first_done;
-      const float scat_w = tf_opacity(tfs.pos, tfs.opa, tfs.n, vol);
+      const float scat_w = tf_opacity<kTfGlobal>(tfs.pos, tfs.opa, tfs.n,
+                                                 vol);
       albedo = scat_w / clamp_min(scat_w + opacity, 1e-8f);
       do_scatter = interact && L.n_int + 1 < a.max_i && L.u[2] < albedo;
     }
@@ -824,9 +864,11 @@ __device__ __forceinline__ bool flight(const TraceArgs& a, const Tf& tf,
 // Block b starts with lanes [b * blockDim, (b + 1) * blockDim); with
 // compaction, every compact_every flights it packs its live lanes into its
 // lowest threads and, where next_lane is given, its free threads take the
-// lanes gridDim * blockDim + next_lane++ while there are any.
-__global__ void __launch_bounds__(kMaxBlock)
-woodcock_trace_kernel(const TraceArgs a) {
+// lanes gridDim * blockDim + next_lane++ while there are any. Both
+// transfer functions' points and opacities sit in shared memory before the
+// staging area, or with kTfGlobal are read from device memory.
+template <bool kTfGlobal>
+__device__ __forceinline__ void trace_lanes(const TraceArgs& a) {
   extern __shared__ float smem[];  // [points, opacities of both TFs][staging]
   __shared__ int hist[kHistory];
   __shared__ int s_live[kMaxBlock / 32];
@@ -837,13 +879,18 @@ woodcock_trace_kernel(const TraceArgs a) {
     for (int k = threadIdx.x; k < kHistory; k += blockDim.x) hist[k] = 0;
     if (threadIdx.x == 0) s_warp_flights = 0;
   }
-  const Tf tf = {smem, smem + a.tf_n, a.tf_n};
-  float* const tfs_pos = smem + 2 * a.tf_n;
-  const Tf tfs = {tfs_pos, tfs_pos + a.tfs_n, a.tfs_n};
-  float* const stage = tfs_pos + 2 * a.tfs_n;
-  stage_tf(a.tf_pos, a.tf_opa, a.tf_stride, a.tf_n, smem, smem + a.tf_n);
-  stage_tf(a.tfs_pos, a.tfs_opa, a.tfs_stride, a.tfs_n, tfs_pos,
-           tfs_pos + a.tfs_n);
+  Tf tf = {a.tf_pos, a.tf_opa, a.tf_n};
+  Tf tfs = {a.tfs_pos, a.tfs_opa, a.tfs_n};
+  float* stage = smem;
+  if constexpr (!kTfGlobal) {
+    float* const tfs_pos = smem + 2 * a.tf_n;
+    tf = {smem, smem + a.tf_n, a.tf_n};
+    tfs = {tfs_pos, tfs_pos + a.tfs_n, a.tfs_n};
+    stage = tfs_pos + 2 * a.tfs_n;
+    stage_tf(a.tf_pos, a.tf_opa, a.tf_stride, a.tf_n, smem, smem + a.tf_n);
+    stage_tf(a.tfs_pos, a.tfs_opa, a.tfs_stride, a.tfs_n, tfs_pos,
+             tfs_pos + a.tfs_n);
+  }
   __syncthreads();
 
   const float maj_global = *a.maj_global;
@@ -858,7 +905,8 @@ woodcock_trace_kernel(const TraceArgs a) {
 
   for (;;) {
     for (int f = 0; f < per_phase && has; ++f) {
-      has = flight(a, tf, tfs, maj_global, hp, &s_warp_flights, L);
+      has = flight<kTfGlobal>(a, tf, tfs, maj_global, hp, &s_warp_flights,
+                              L);
       if (!has) finish_lane(a, L, most);
     }
     if (a.compact_every <= 0) break;
@@ -909,11 +957,36 @@ woodcock_trace_kernel(const TraceArgs a) {
   }
 }
 
+__global__ void __launch_bounds__(kMaxBlock)
+woodcock_trace_kernel(const TraceArgs a) {
+  trace_lanes<false>(a);
+}
+
+__global__ void __launch_bounds__(kMaxBlock)
+woodcock_trace_global_tf_kernel(const TraceArgs a) {
+  trace_lanes<true>(a);
+}
+
 }  // namespace
 
 // Returned where a block would need more shared memory than the card has
 // (apart from every CUDA error's code and its negative).
 constexpr int kTooMuchShared = -100000;
+
+// The kernels whose blocks may hold transfer functions in shared memory,
+// as cpm_woodcock_shared_limit numbers them.
+constexpr int kTraceKernel = 0;
+constexpr int kGridsKernel = 1;
+
+static const void* trace_kernel(int tf_global) {
+  return tf_global ? (const void*)woodcock_trace_global_tf_kernel
+                   : (const void*)woodcock_trace_kernel;
+}
+
+static const void* grids_kernel(int tf_global) {
+  return tf_global ? (const void*)trace_grids_majorant_global_tf_kernel
+                   : (const void*)trace_grids_majorant_kernel;
+}
 
 // Lets ``kernel`` take ``bytes`` of dynamic shared memory a block on the
 // current card: past the 48 KB every kernel may take, it opts in, up to
@@ -935,29 +1008,55 @@ static int allow_shared(const void* kernel, size_t bytes) {
 }
 
 // Dynamic shared memory of one trace block: both transfer functions'
-// points and opacities, and with compaction the lanes' staging area.
+// points and opacities unless they are read from device memory, and with
+// compaction the lanes' staging area.
 static size_t trace_smem(const TraceArgs& a, int block) {
-  size_t floats = 2 * (size_t)(a.tf_n + a.tfs_n);
+  size_t floats = a.tf_global ? 0 : 2 * (size_t)(a.tf_n + a.tfs_n);
   if (a.compact_every > 0) floats += (size_t)kLaneWords * block;
   return floats * sizeof(float);
 }
 
-// Resident blocks of ``block`` threads per SM of the current card at
-// ``smem`` bytes of dynamic shared memory; kTooMuchShared, or minus a CUDA
-// error.
-extern "C" int cpm_woodcock_occupancy(int block, int smem) {
-  const int allowed =
-      allow_shared((const void*)woodcock_trace_kernel, (size_t)smem);
+// The dynamic shared memory a block of ``which`` (kTraceKernel or
+// kGridsKernel, holding its transfer functions in shared memory) may take
+// on the current card: the card's opt-in limit a block
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin) less the kernel's static
+// arrays; minus a CUDA error. The wrappers hold the bytes trace_smem and
+// cpm_trace_grids would need against it before they launch, and read the
+// transfer functions from device memory past it.
+extern "C" int cpm_woodcock_shared_limit(int which) {
+  if (which != kTraceKernel && which != kGridsKernel)
+    return -(int)cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(
+        &fa, which == kTraceKernel ? trace_kernel(0) : grids_kernel(0));
+  if (err != cudaSuccess) return -(int)err;
+  return optin - (int)fa.sharedSizeBytes;
+}
+
+// Resident trace blocks of ``block`` threads per SM of the current card at
+// ``smem`` bytes of dynamic shared memory, for the kernel that reads its
+// transfer functions from shared memory (tf_global 0) or from device
+// memory (1); kTooMuchShared, or minus a CUDA error.
+extern "C" int cpm_woodcock_occupancy(int block, int smem, int tf_global) {
+  const void* kernel = trace_kernel(tf_global);
+  const int allowed = allow_shared(kernel, (size_t)smem);
   if (allowed != 0) return allowed == kTooMuchShared ? allowed : -allowed;
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, woodcock_trace_kernel, block, (size_t)smem);
+      &n, kernel, block, (size_t)smem);
   return err == cudaSuccess ? n : -(int)err;
 }
 
 // The trace in ``grid`` blocks of ``block`` threads (block a multiple of
-// 32, at most kMaxBlock; kernels/woodcock_trace.py:launch_shape);
-// next_lane is zeroed here. 0, a CUDA error or kTooMuchShared.
+// 32, at most kMaxBlock; kernels/woodcock_trace.py:launch_shape), by the
+// kernel that args->tf_global names; next_lane is zeroed here. 0, a CUDA
+// error or kTooMuchShared.
 extern "C" int cpm_woodcock_trace(const TraceArgs* args, int grid, int block,
                                   void* stream_) {
   const TraceArgs a = *args;
@@ -965,35 +1064,49 @@ extern "C" int cpm_woodcock_trace(const TraceArgs* args, int grid, int block,
   if (a.n <= 0) return 0;
   if (block < 32 || block > kMaxBlock || block % 32 != 0 || grid < 1)
     return (int)cudaErrorInvalidConfiguration;
+  if (a.tf_global && (a.tf_stride != 1 || a.tfs_stride != 1))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = trace_smem(a, block);
-  const int allowed = allow_shared((const void*)woodcock_trace_kernel, smem);
+  const void* kernel = trace_kernel(a.tf_global);
+  const int allowed = allow_shared(kernel, smem);
   if (allowed != 0) return allowed;
   if (a.next_lane != nullptr) {
     const cudaError_t err =
         cudaMemsetAsync(a.next_lane, 0, sizeof(int), stream);
     if (err != cudaSuccess) return (int)err;
   }
-  woodcock_trace_kernel<<<grid, block, smem, stream>>>(a);
+  if (a.tf_global) {
+    woodcock_trace_global_tf_kernel<<<grid, block, smem, stream>>>(a);
+  } else {
+    woodcock_trace_kernel<<<grid, block, smem, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
-// The majorant grids of one trace: three launches. 0, a CUDA error or
-// kTooMuchShared (a row of cells and the points beyond a block's shared
-// memory).
+// The majorant grids of one trace: three launches, the majorant kernel the
+// one args->tf_global names. 0, a CUDA error or kTooMuchShared (a row of
+// cells, and unless they are read from device memory the points, beyond a
+// block's shared memory).
 extern "C" int cpm_trace_grids(const GridArgs* args, void* stream_) {
   const GridArgs a = *args;
   cudaStream_t stream = (cudaStream_t)stream_;
-  const size_t smem = sizeof(float) * (a.gx + 2 * (size_t)a.tf_n);
-  const int allowed =
-      allow_shared((const void*)trace_grids_majorant_kernel, smem);
+  if (a.tf_global && a.tf_stride != 1) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * (a.gx + (a.tf_global ? 0 : 2 * (size_t)a.tf_n));
+  const int allowed = allow_shared(grids_kernel(a.tf_global), smem);
   if (allowed != 0) return allowed;
   const int cpb = a.cell < kGridThreads ? kGridThreads / a.cell : 1;
   trace_grids_minmax_kernel<<<dim3((a.gx + cpb - 1) / cpb, a.gy, a.gz),
                               kGridThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  trace_grids_majorant_kernel<<<dim3(a.gy, a.gz), kGridThreads, smem,
-                                stream>>>(a);
+  if (a.tf_global) {
+    trace_grids_majorant_global_tf_kernel<<<dim3(a.gy, a.gz), kGridThreads,
+                                            smem, stream>>>(a);
+  } else {
+    trace_grids_majorant_kernel<<<dim3(a.gy, a.gz), kGridThreads, smem,
+                                  stream>>>(a);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long cells = (long long)a.gz * a.gy * a.gx;
   trace_grids_distance_kernel<<<(unsigned)((cells + kGridThreads - 1)

@@ -24,6 +24,13 @@ occupancy) and launches the kernel on the current stream. Both raise on
 tensors of another device, type, shape or layout and on a launch that
 fails; ``trace_woodcock_cuda.launches`` counts its launches and
 ``.last_shape`` is the last one's :class:`LaunchShape`.
+
+Transfer functions of any size: a block keeps both transfer functions'
+points and opacities in shared memory where they fit beside the rest of
+its dynamic shared memory (:func:`tf_in_shared`, against the card's opt-in
+limit less the kernel's static arrays), else both kernels read them from
+device memory (a contiguous copy of the opacities, one device operation a
+call). The choice is made before the launch.
 ``ops/tracer.py`` dispatches to them (``method="auto"`` on CUDA tensors,
 or ``"cuda"``).
 """
@@ -60,8 +67,11 @@ BLOCKS = (256, 128, 64, 32)
 COMPACT_EVERY = 8
 LANE_WORDS = 24  # a lane's state in the compaction's staging area
 # What the library returns where a block would need more shared memory
-# than the card gives one (the transfer functions' points, a row of cells).
+# than the card gives one (a row of cells of the grids).
 TOO_MUCH_SHARED = -100000
+# The kernels of cpm_woodcock_shared_limit: the trace and the grids'
+# majorant kernel.
+TRACE_KERNEL, GRIDS_KERNEL = 0, 1
 
 
 class _Args(ctypes.Structure):
@@ -81,7 +91,7 @@ class _Args(ctypes.Structure):
         ("cell_shift", ctypes.c_int), ("cell_mul", ctypes.c_uint)] + [
         (name, ctypes.c_int) for name in (
             "ring", "phase_type", "nss", "clipped", "record_events",
-            "compact_every")] + [
+            "compact_every", "tf_global")] + [
         ("vdims", ctypes.c_float * 3), ("cell_ext", ctypes.c_float * 3),
         ("clip_lo", ctypes.c_float * 3), ("clip_hi", ctypes.c_float * 3),
         ("step_size", ctypes.c_float), ("sbi", ctypes.c_float),
@@ -96,7 +106,7 @@ class _GridArgs(ctypes.Structure):
         "volume", "tf_pos", "tf_opa", "minmax", "row_max", "dx", "table",
         "maj_global")] + [(name, ctypes.c_int) for name in (
             "d", "h", "w", "gz", "gy", "gx", "tf_n", "tf_stride", "cell",
-            "ring", "cap")] + [("tau", ctypes.c_float)]
+            "ring", "cap", "tf_global")] + [("tau", ctypes.c_float)]
 
 
 class LaunchShape(NamedTuple):
@@ -158,8 +168,11 @@ def _library():
     lib.cpm_woodcock_trace.argtypes = [ctypes.POINTER(_Args), ctypes.c_int,
                                        ctypes.c_int, ctypes.c_void_p]
     lib.cpm_woodcock_trace.restype = ctypes.c_int
-    lib.cpm_woodcock_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.cpm_woodcock_occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int]
     lib.cpm_woodcock_occupancy.restype = ctypes.c_int
+    lib.cpm_woodcock_shared_limit.argtypes = [ctypes.c_int]
+    lib.cpm_woodcock_shared_limit.restype = ctypes.c_int
     lib.cpm_trace_grids.argtypes = [ctypes.POINTER(_GridArgs),
                                     ctypes.c_void_p]
     lib.cpm_trace_grids.restype = ctypes.c_int
@@ -171,18 +184,62 @@ def _too_much_shared(what: str) -> ValueError:
                       "this card has")
 
 
+def tf_in_shared(tf_bytes: int, other_bytes: int, limit: int) -> bool:
+    """The rule that places a block's transfer functions: in shared
+    memory where their ``tf_bytes`` (8 a point: its position and opacity)
+    and the block's ``other_bytes`` of dynamic shared memory (a trace's
+    staging area, a row of the grids' cells) fit in ``limit``, the bytes a
+    block of the kernel may take on the card (:func:`shared_limit`); else
+    in device memory."""
+    return tf_bytes + other_bytes <= limit
+
+
+def trace_tf_in_shared(points: int, block: int, limit: int) -> bool:
+    """Whether a trace block of ``block`` threads keeps the ``points``
+    points of both transfer functions in shared memory: with its staging
+    area counted whether or not the launch compacts, so that the occupancy
+    that sizes the grid and the launch agree."""
+    return tf_in_shared(8 * points, 4 * LANE_WORDS * block, limit)
+
+
+def trace_smem(points: int, block: int, tf_shared: bool) -> int:
+    """The dynamic shared memory of a trace block of ``block`` threads
+    that sizes its grid: the points and opacities of both transfer
+    functions where they are in shared memory, and the staging area."""
+    return 8 * points * tf_shared + 4 * LANE_WORDS * block
+
+
 @functools.cache
-def _per_sm(index: int, block: int, smem: int) -> int:
-    """Resident trace blocks of ``block`` threads per SM of card
-    ``index``, at ``smem`` bytes of dynamic shared memory."""
+def shared_limit(index: int, kernel: int) -> int:
+    """The dynamic shared memory a block of ``kernel`` (TRACE_KERNEL or
+    GRIDS_KERNEL) may take on card ``index``: the card's opt-in limit a
+    block less the kernel's static arrays."""
     with torch.cuda.device(index):
-        got = _library().cpm_woodcock_occupancy(block, smem)
+        got = _library().cpm_woodcock_shared_limit(kernel)
+    if got < 0:
+        raise RuntimeError(f"shared memory limit: CUDA error {-got}")
+    return got
+
+
+@functools.cache
+def _per_sm(index: int, block: int, smem: int, tf_global: bool) -> int:
+    """Resident trace blocks of ``block`` threads per SM of card
+    ``index``, at ``smem`` bytes of dynamic shared memory, of the kernel
+    that reads its transfer functions from device memory where
+    ``tf_global``."""
+    with torch.cuda.device(index):
+        got = _library().cpm_woodcock_occupancy(block, smem, int(tf_global))
     if got == TOO_MUCH_SHARED:
         raise _too_much_shared(f"blocks of {block} threads and {smem} bytes "
                                "of transfer functions and staging")
     if got < 0:
         raise RuntimeError(f"trace kernel occupancy: CUDA error {-got}")
     return got
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else \
+        torch.cuda.current_device()
 
 
 @functools.cache
@@ -254,7 +311,8 @@ def trace_grids_cuda(volume: Tensor, tf_pos: Tensor, tf_opa: Tensor,
     factor of the majorants. ``maj`` and ``dist`` are the two (gz, gy, gx)
     halves of one interleaved table, which the trace kernel reads with one
     load; ``maj_global`` is a 0-d tensor. ``trace_grids_cuda.launches``
-    counts its calls."""
+    counts its calls, ``.tf_global`` whether the last one read the points
+    from device memory (:func:`tf_in_shared`)."""
     dev = volume.device
     if dev.type != "cuda":
         raise ValueError(f"the volume is on {dev}; the grids' kernels take "
@@ -269,6 +327,10 @@ def trace_grids_cuda(volume: Tensor, tf_pos: Tensor, tf_opa: Tensor,
     if p < 1 or cell < 1 or ring < 0 or cap < 0:
         raise ValueError("bad transfer function, cell, ring or cap")
     gz, gy, gx = -(-d // cell), -(-h // cell), -(-w // cell)
+    tf_global = not tf_in_shared(
+        8 * p, 4 * gx, shared_limit(_device_index(dev), GRIDS_KERNEL))
+    if tf_global:
+        tf_opa, stride = tf_opa.contiguous(), 1
     cells = gz * gy * gx
     out = torch.empty(2 * cells + 1, dtype=torch.float32, device=dev)
     scratch = torch.empty(3 * cells + gz * gy, dtype=torch.float32,
@@ -280,20 +342,21 @@ def trace_grids_cuda(volume: Tensor, tf_pos: Tensor, tf_opa: Tensor,
         scratch.data_ptr(), scratch[2 * cells:].data_ptr(),
         scratch[2 * cells + gz * gy:].data_ptr(), table.data_ptr(),
         maj_global.data_ptr(), d, h, w, gz, gy, gx, p, stride, cell, ring,
-        cap, float(np.float32(tau)))
+        cap, int(tf_global), float(np.float32(tau)))
     with torch.cuda.device(dev):
         err = _library().cpm_trace_grids(
             ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
     if err == TOO_MUCH_SHARED:
-        raise _too_much_shared(f"rows of {gx} cells and {p} transfer "
-                               "function points")
+        raise _too_much_shared(f"rows of {gx} cells")
     if err != 0:
         raise RuntimeError(f"trace grids kernels: CUDA error {err}")
     trace_grids_cuda.launches += 1
+    trace_grids_cuda.tf_global = tf_global
     return table[..., 0], table[..., 1], maj_global
 
 
 trace_grids_cuda.launches = 0
+trace_grids_cuda.tf_global = None
 
 
 def _prepare(c, volume: Tensor, origins: Tensor, directions: Tensor,
@@ -362,14 +425,22 @@ def _prepare(c, volume: Tensor, origins: Tensor, directions: Tensor,
                        warp_flights)
 
     # A block's shared memory: both transfer functions' points and
-    # opacities, and the staging area of a compaction.
-    index = dev.index if dev.index is not None else \
-        torch.cuda.current_device()
+    # opacities where they fit (tf_in_shared), and the staging area of a
+    # compaction.
+    index = _device_index(dev)
+    limit = shared_limit(index, TRACE_KERNEL)
 
     def per_sm(block: int) -> int:
-        return _per_sm(index, block, 8 * (np_ + nq) + 4 * LANE_WORDS * block)
+        shared = trace_tf_in_shared(np_ + nq, block, limit)
+        return _per_sm(index, block, trace_smem(np_ + nq, block, shared),
+                       not shared)
 
     shape = launch_shape(n, _sms(index), per_sm)
+    tf_global = not trace_tf_in_shared(np_ + nq, shape.block, limit)
+    tf_opa, tfs_opa = c.tf_opa, c.tfs_opa
+    if tf_global:
+        tf_opa, tfs_opa = tf_opa.contiguous(), tfs_opa.contiguous()
+        tf_stride = tfs_stride = 1
     next_lane = None
     if shape.compact_every and shape.grid * shape.block < n:
         next_lane = torch.empty(1, dtype=torch.int32, device=dev)
@@ -379,18 +450,18 @@ def _prepare(c, volume: Tensor, origins: Tensor, directions: Tensor,
 
     args = _Args(
         *(_ptr(t) for t in (
-            volume, table, c.maj_global, c.tf_pos, c.tf_opa, c.tfs_pos,
-            c.tfs_opa, origins, directions, powers, tspan, lane_ids, *out,
+            volume, table, c.maj_global, c.tf_pos, tf_opa, c.tfs_pos,
+            tfs_opa, origins, directions, powers, tspan, lane_ids, *out,
             next_lane)),
         n, d, h, w, gz, gy, gx, np_, nq, tf_stride, tfs_stride,
         int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF, max_i,
         c.step_limit, cell_shift, cell_mul, c.ring, c.phase_type,
         int(c.no_single_scattering), int(c.clipped), record_events,
-        shape.compact_every,
+        shape.compact_every, int(tf_global),
         floats(c.vdims), floats(c.cell_ext), floats(c.clip_min),
         floats(c.clip_max), c.step_size, c.sbi, c.cell_min_ext, c.phase_g,
         float(np.float32(1.0) / np.float32(max_i)))
-    return args, shape, out, (table, next_lane)
+    return args, shape, out, (table, next_lane, tf_opa, tfs_opa)
 
 
 def trace_woodcock_cuda(c, volume: Tensor, origins: Tensor,
@@ -425,15 +496,15 @@ def trace_woodcock_cuda(c, volume: Tensor, origins: Tensor,
         err = _library().cpm_woodcock_trace(
             ctypes.byref(args), shape.grid, shape.block,
             torch.cuda.current_stream().cuda_stream)
-    if err == TOO_MUCH_SHARED:
-        raise _too_much_shared(f"transfer functions of {c.tf_pos.shape[0]} "
-                               f"and {c.tfs_pos.shape[0]} points")
     if err != 0:
         raise RuntimeError(f"Woodcock trace kernel: CUDA error {err}")
     trace_woodcock_cuda.launches += 1
     trace_woodcock_cuda.last_shape = shape
+    trace_woodcock_cuda.tf_global = bool(args.tf_global)
     return out
 
 
 trace_woodcock_cuda.launches = 0
 trace_woodcock_cuda.last_shape = None  # the LaunchShape of the last launch
+# Whether the last launch read the transfer functions from device memory.
+trace_woodcock_cuda.tf_global = None

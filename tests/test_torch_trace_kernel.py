@@ -17,11 +17,14 @@
   refill rest on;
 - the wrapper's pure parts: the launch shape (with a mirror of the
   kernel's compaction and claims, every lane runs exactly once), the
-  macrocell divisor, the grids' table;
+  macrocell divisor, the grids' table, and the byte rule that places the
+  transfer functions in shared or in device memory before a launch;
 - on the card (marked ``cuda``): the kernel against the wavefront loop,
   lane by lane, for every option, on 1 and 33 lanes, on a grid too
-  small for its list (refill), and with a transfer function of 8192
-  points (past 48 KB of shared memory); the grids' pre-pass against its plain
+  small for its list (refill), with a transfer function of 8192
+  points (past 48 KB of shared memory), with two of 40,000 points (past a
+  block's shared memory: read from device memory) and with the default
+  ones read from device memory; the grids' pre-pass against its plain
   version bit for bit (the cases of :data:`GRID_CASES`, which
   tests/test_torch_majorant.py also holds against the reference).
 
@@ -354,13 +357,66 @@ def test_the_kernels_table_of_the_grids():
     assert torch.equal(wt._table(maj, dist), table)
 
 
+@pytest.mark.parametrize("below", [0, 1])
+def test_the_transfer_functions_leave_shared_memory_past_the_limit(
+        below, monkeypatch):
+    """The wrapper's rule, at the byte boundary of a limit passed in: a
+    trace block keeps both transfer functions' points (8 bytes a point) in
+    shared memory while they and its staging area (24 words a thread) fit
+    in the limit, and reads them from device memory one byte past it,
+    with the opacities contiguous; the occupancy that sizes the grid is
+    asked for the shared memory of the form launched. The grids' rule
+    likewise with a row of cells (4 bytes a cell)."""
+    vol, tf, tfs, ls = _scene((16, 16, 16))
+    pos, cols = tf_of(60)
+    tf = ttypes.TransferFunction.from_points(pos, cols, device="cpu")
+    points = 60 + tfs.positions.shape[0]
+    sms = 2
+    block = wt.launch_shape(ls.n, sms, lambda b: 1).block
+    limit = 8 * points + 4 * wt.LANE_WORDS * block - below
+    asked = []
+
+    def per_sm(index, b, smem, tf_global):
+        asked.append((b, smem, tf_global))
+        return 1
+
+    monkeypatch.setattr(wt, "shared_limit", lambda index, kernel: limit)
+    monkeypatch.setattr(wt, "_per_sm", per_sm)
+    monkeypatch.setattr(wt, "_sms", lambda index: sms)
+    monkeypatch.setattr(wt, "_device_index", lambda dev: 0)
+    c = tracer.trace_constants(vol, tf, tfs, TracerConfig())
+    ids = torch.arange(ls.n, dtype=torch.int64)
+    args, shape, _, keep = wt._prepare(
+        c, vol.data.contiguous(), ls.origins.contiguous(),
+        ls.directions.contiguous(), ls.powers.contiguous(),
+        ls.tspan.contiguous(), ids, (1, 2), 0, False)
+    assert shape.block == block
+    assert args.tf_global == below
+    staging = 4 * wt.LANE_WORDS * block
+    assert (block, staging + (0 if below else 8 * points), bool(below)) \
+        in asked
+    assert all(smem == wt.trace_smem(points, b, not g)
+               for b, smem, g in asked)
+    if below:
+        assert (args.tf_stride, args.tfs_stride) == (1, 1)
+        assert args.tf_opa == keep[2].data_ptr() and keep[2].is_contiguous()
+        assert torch.equal(keep[2], c.tf_opa)
+    else:
+        assert (args.tf_stride, args.tfs_stride) == (4, 4)
+        assert args.tf_opa == c.tf_opa.data_ptr()
+    gx = 64
+    assert wt.tf_in_shared(8 * points, 4 * gx, 8 * points + 4 * gx - below) \
+        == (not below)
+
+
 # --- the grids' cases ----------------------------------------------------------
 
 # Volumes and transfer functions the grids are held at: the default frame's
 # 128^3 volume, partial last cells (sides 20, 13, 9), a cell of 3 voxels,
-# rings 1 and 2, caps 0, 1 and 6, transfer functions of 4, 17, 64, 256 and
+# rings 1 and 2, caps 0, 1 and 6, transfer functions of 4, 17, 64, 256,
 # 8192 points (past 48 KB of shared memory a block, where the kernel opts
-# in to more), and volumes that are empty and full everywhere.
+# in to more) and 40,000 (past a block's shared memory: the points read
+# from device memory), and volumes that are empty and full everywhere.
 GRID_CASES = {
     "default_frame_128": dict(shape=(128, 128, 128), tf=4, cell=8, ring=1,
                               cap=6),
@@ -373,6 +429,7 @@ GRID_CASES = {
                                cap=6),
     "tf256_ring2": dict(shape=(64, 48, 56), tf=256, cell=8, ring=2, cap=6),
     "tf8192": dict(shape=(16, 24, 16), tf=8192, cell=8, ring=1, cap=6),
+    "tf40000": dict(shape=(16, 24, 16), tf=40000, cell=8, ring=1, cap=6),
     "all_empty": dict(shape=(32, 32, 32), fill=0.0, tf=4, cell=8, ring=1,
                       cap=6),
     "all_full": dict(shape=(32, 32, 32), fill=0.7, tf=4, cell=8, ring=1,
@@ -451,7 +508,20 @@ CARD_CASES = {
                       dict(tf_points=8192)),
     "tf8192_points_refill": (dict(max_steps=6, flights_per_iteration=2),
                              dict(tf_points=8192, shape=(256, 8, 4))),
+    # Both transfer functions of 40,000 points: past a block's shared
+    # memory, so the kernel reads them from device memory (fewer flights
+    # still: the wavefront's where chain is 40,000 segments long).
+    "tf40000_points": (dict(max_steps=4, flights_per_iteration=2),
+                       dict(tf_points=40000, tfs_points=40000)),
+    "tf40000_points_refill": (dict(max_steps=4, flights_per_iteration=2),
+                              dict(tf_points=40000, tfs_points=40000,
+                                   shape=(256, 8, 4))),
+    # The default transfer functions read from device memory (a limit of
+    # 0 bytes), every flight, with the statistics.
+    "global_tf_default": (dict(), dict(return_stats=True, tf_limit=0)),
 }
+# The cases whose transfer functions the kernels read from device memory.
+GLOBAL_TF = ("tf40000_points", "tf40000_points_refill", "global_tf_default")
 
 
 @pytest.fixture(scope="module")
@@ -479,8 +549,14 @@ def test_kernel_matches_the_wavefront_on_the_card(card_frame, case,
     opts = dict(opts)
     cfg = dataclasses.replace(config.tracer, **tkw)
     samples, ids, tf = state.light_samples, None, scene.tf
+    tfs = scene.tf_scattering
     if "tf_points" in opts:
         tf = chip_smoke.many_point_tf(tf, opts.pop("tf_points"))
+    if "tfs_points" in opts:
+        tfs = chip_smoke.many_point_tf(tfs, opts.pop("tfs_points"), seed=13)
+    if "tf_limit" in opts:
+        limit = opts.pop("tf_limit")
+        monkeypatch.setattr(wt, "shared_limit", lambda index, kernel: limit)
     if "lanes" in opts:
         k = opts.pop("lanes")
         samples = ttypes.LightSamples(
@@ -497,7 +573,7 @@ def test_kernel_matches_the_wavefront_on_the_card(card_frame, case,
             origins=samples.origins[ids], directions=samples.directions[ids],
             powers=samples.powers[ids], tspan=samples.tspan[ids])
     key = rng.fold_in(state.key, 0)
-    args = (scene.volume, tf, scene.tf_scattering, samples, key, cfg)
+    args = (scene.volume, tf, tfs, samples, key, cfg)
 
     def run(method):
         if cfg.trace_chunk:
@@ -514,6 +590,8 @@ def test_kernel_matches_the_wavefront_on_the_card(card_frame, case,
     assert wt.trace_woodcock_cuda.launches - before == launches
     assert launches == (-(-samples.n // cfg.trace_chunk)
                         if cfg.trace_chunk else 1)
+    assert wt.trace_woodcock_cuda.tf_global == (case in GLOBAL_TF)
+    assert wt.trace_grids_cuda.tf_global == (case in GLOBAL_TF)
     differ = chip_smoke.trace_lanes_differ(got, want)
     print(f"{case}: {int(differ.sum())} of {samples.n} lanes differ")
     assert float(differ.float().mean()) <= MAX_LANES_DIFFER
@@ -555,6 +633,9 @@ def test_grids_match_their_plain_version_on_the_card(case):
         assert bool(same.all()), (name, int((~same).sum()))
     assert got[3] == want[3]
     assert wt._table(got[0], got[1]).data_ptr() == got[0].data_ptr()
+    # Past a block's shared memory (227 KB on an H100) the points are read
+    # from device memory.
+    assert wt.trace_grids_cuda.tf_global == (GRID_CASES[case]["tf"] > 20000)
     print(f"{case}: grids {tuple(got[0].shape)} equal bit for bit, "
           f"{int((got[0] > 0).sum())} nonzero cells, max "
           f"{float(got[2]):.6g}")
