@@ -269,6 +269,7 @@ import torch
 import torch.distributed as dist
 
 from cpm_tpu_torch import entry as port_entry
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.core.camera import Camera
 from cpm_tpu_torch.core.config import (PipelineConfig, RecomputeConfig,
                                        RenderConfig, SplatConfig,
@@ -527,6 +528,19 @@ WINDOWS = collections.Counter()
 MISSING = collections.Counter()
 
 
+@contextlib.contextmanager
+def kernel_counters_off():
+    """The kernels' counters off inside a profiler window: the recorder
+    hands a kernel its counters whenever a profiler records, and a timing
+    window times the kernels as the untraced path runs them."""
+    saved = telemetry.device_counters
+    telemetry.device_counters = lambda *args, **kwargs: None
+    try:
+        yield
+    finally:
+        telemetry.device_counters = saved
+
+
 def device_ms(what: str, fn, reps: int, by_name: bool = False,
               uneven: bool = False):
     """Mean device milliseconds per call of ``fn``, which enqueues
@@ -543,14 +557,16 @@ def device_ms(what: str, fn, reps: int, by_name: bool = False,
     ``uneven``: a call whose launches do unequal work, as the chunks of
     planes of a sweep), is printed and taken again, four times at most.
     Raises where a window holds more records than were enqueued; 0.0 when
-    four windows in a row show no device time at all."""
+    four windows in a row show no device time at all. The kernels'
+    counters are off in the window (:func:`kernel_counters_off`)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     want = {name: reps * per for name, per in RECORDS[what].items()}
     for _ in range(4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) as prof, \
+                kernel_counters_off():
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -905,20 +921,23 @@ SWEEP_FOLD = ss.sweep_fold
 
 def reset_counts() -> None:
     torch.cuda.synchronize()
-    for fn in (*COUNTED.values(), sp.splat_product_grad_cuda, TRACE,
-               wt.trace_grids_cuda, SWEEP_PREP, SWEEP_FWD, SWEEP_BWD,
-               SWEEP_FOLD):
-        fn.launches = 0
+    telemetry.reset()
 
 
 def read_counts() -> dict:
-    return {**{name: fn.launches for name, fn in COUNTED.items()},
-            "trace_woodcock_cuda": TRACE.launches,
-            "trace_grids": wt.trace_grids_cuda.launches,
-            "sweep_planes": SWEEP_PREP.launches,
-            "sweep_scan_forward": SWEEP_FWD.launches,
-            "sweep_scan_backward": SWEEP_BWD.launches,
-            "sweep_fold": SWEEP_FOLD.launches}
+    return {**{name: telemetry.launches(name) for name in COUNTED},
+            "trace_woodcock_cuda": telemetry.launches("trace_woodcock_cuda"),
+            "trace_grids": telemetry.launches("trace_grids_cuda"),
+            "sweep_planes": telemetry.launches("sweep_planes"),
+            "sweep_scan_forward": telemetry.launches("sweep_scan_forward"),
+            "sweep_scan_backward": telemetry.launches("sweep_scan_backward"),
+            "sweep_fold": telemetry.launches("sweep_fold")}
+
+
+def forward_launches() -> tuple:
+    """The sweep forward's pre-pass and march launches counted so far."""
+    return (telemetry.launches("sweep_planes"),
+            telemetry.launches("sweep_scan_forward"))
 
 
 def expect_launches(what: str, launches: dict, designs: list,
@@ -1316,12 +1335,12 @@ def check_grids(what: str, volume, tf, tcfg, tag, reps: int = 20,
     comparison), beside its bound. With ``held`` False only timed (the
     comparison made elsewhere): no plain version runs."""
     torch.cuda.synchronize()
-    before = GRIDS.launches
+    before = telemetry.launches("trace_grids_cuda")
     got = tracer.majorant_grids(volume, tf, tcfg)
     torch.cuda.synchronize()
-    if GRIDS.launches != before + 1:
-        raise AssertionError(f"{what}: {GRIDS.launches - before} pre-pass "
-                             "calls")
+    calls = telemetry.launches("trace_grids_cuda") - before
+    if calls != 1:
+        raise AssertionError(f"{what}: {calls} pre-pass calls")
     nonzero = int((got[0] > 0.0).sum())
     differ, plain = None, None
     if held:
@@ -1333,8 +1352,8 @@ def check_grids(what: str, volume, tf, tcfg, tag, reps: int = 20,
               f"{tuple(got[0].shape)} cells ({nonzero} nonzero), elements "
               f"differing {differ}, largest majorant {float(got[2]):.6g} "
               f"({tag})")
-        if any(differ.values()) or got[3] != want[3] or GRIDS.launches \
-                != before + 1:
+        if any(differ.values()) or got[3] != want[3] or telemetry.launches(
+                "trace_grids_cuda") - before != 1:
             raise AssertionError(f"{what}: the pre-pass is not its plain "
                                  "version")
 
@@ -1385,13 +1404,14 @@ def call_breakdown(what: str, fn, tag) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its top-level aten
     operators, the device records it enqueued (kernels and memsets) by
     name, their device time, and the host time of the call (CUDA events
-    around it, synchronised)."""
+    around it, synchronised), with the kernels' counters off."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            kernel_counters_off():
         _, host = timed_once(fn)
     events = prof.events()
     top = collections.Counter(
@@ -1440,16 +1460,16 @@ def check_trace(what: str, scene, samples, key, tcfg, dim, tag, *,
 
     n = samples.n
     torch.cuda.synchronize()
-    before = TRACE.launches
+    before = telemetry.launches("trace_woodcock_cuda")
     got = trace("cuda")
     torch.cuda.synchronize()
-    launches = TRACE.launches - before
+    launches = telemetry.launches("trace_woodcock_cuda") - before
     if launches != (-(-n // chunk) if chunk else 1):
         raise AssertionError(f"{what}: {launches} kernel launches")
     plain_once = None
     if held:
         want, plain_once = timed_once(lambda: trace("wavefront"))
-        if TRACE.launches - before != launches:
+        if telemetry.launches("trace_woodcock_cuda") - before != launches:
             raise AssertionError(f"{what}: the wavefront launched the "
                                  "kernel")
         differ = int(trace_lanes_differ(got, want).sum())
@@ -2028,11 +2048,10 @@ def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
             whole = scan("cuda", sched, u, v)[:, columns]
             u = u[columns]
         parts.append((sched, u, v))
-        before = (SWEEP_PREP.launches, SWEEP_FWD.launches)
+        before = forward_launches()
         got = scan("cuda", sched, u, v)
         torch.cuda.synchronize()
-        made = (SWEEP_PREP.launches - before[0],
-                SWEEP_FWD.launches - before[1])
+        made = tuple(a - b for a, b in zip(forward_launches(), before))
         if made != (1, 1):
             raise AssertionError(f"{what}: {made} pre-pass and march "
                                  "launches for one scan")
@@ -2057,13 +2076,13 @@ def check_sweep(what: str, volume, tf, light_volume, camera, rc, tag, *,
     res["max_abs_err"] = max(res[f"sweep {i}"]["max_abs_err"]
                              for i in range(len(scans)))
     if columns is None and whole_image:
-        before = (SWEEP_PREP.launches, SWEEP_FWD.launches)
+        before = forward_launches()
         img = sweep_render.sweep_render(volume, tf, light_volume, camera, rc,
                                         method="cuda")
         torch.cuda.synchronize()
-        res["launches"] = SWEEP_FWD.launches - before[1]
-        if (SWEEP_PREP.launches - before[0], res["launches"]) != (
-                len(scans), len(scans)):
+        made = tuple(a - b for a, b in zip(forward_launches(), before))
+        res["launches"] = made[1]
+        if made != (len(scans), len(scans)):
             raise AssertionError(f"{what}: {res['launches']} forward "
                                  f"launches for {len(scans)} sweeps")
         want = sweep_render.sweep_render(volume, tf, light_volume, camera,
@@ -3168,10 +3187,10 @@ def check_sweep_rows(what: str, scene, state, config, img, tag) -> dict:
     saved = ss.PLANE_BUDGET
     ss.PLANE_BUDGET = 1 << 62
     try:
-        before = SWEEP_FWD.launches
+        before = telemetry.launches("sweep_scan_forward")
         one = step.render_state(scene, state, config)
         torch.cuda.synchronize()
-        one_launches = SWEEP_FWD.launches - before
+        one_launches = telemetry.launches("sweep_scan_forward") - before
     finally:
         ss.PLANE_BUDGET = saved
     same = bool(_same_bits(img.reshape(-1), one.reshape(-1)).all())
@@ -4493,14 +4512,14 @@ def check_backward(what: str, pos, pw, r: float, dim, seed: int, tag,
     rs = np.random.default_rng(seed)
     g = torch.from_numpy(rs.standard_normal((*dim, 3)).astype(np.float32)
                          ).to(pos.device)
-    before = sp.splat_product_grad_cuda.launches
+    before = telemetry.launches("splat_product_grad_cuda")
     got = sp.splat_product_grad(pos, g, r, dim)
     again = sp.splat_product_grad(pos, g, r, dim)
     torch.cuda.synchronize()
-    if sp.splat_product_grad_cuda.launches != before + 2:
-        raise AssertionError(f"{what}: two backward calls counted "
-                             f"{sp.splat_product_grad_cuda.launches - before}"
-                             " launches")
+    made = telemetry.launches("splat_product_grad_cuda") - before
+    if made != 2:
+        raise AssertionError(f"{what}: two backward calls counted {made} "
+                             "launches")
     if not torch.equal(got, again):
         raise AssertionError(f"{what}: two launches of the backward differ")
     ref = sp.splat_product_grad_torch(pos, g, r, dim)
@@ -4643,8 +4662,8 @@ def run_fit(tag) -> dict:
     err = fit.main([])
     torch.cuda.synchronize()
     s = time.perf_counter() - t0
-    launches = {**read_counts(),
-                "splat_product_grad_cuda": sp.splat_product_grad_cuda.launches}
+    launches = {**read_counts(), "splat_product_grad_cuda":
+                telemetry.launches("splat_product_grad_cuda")}
     print(f"fit_tf_torch on the card: {fit.N_STEPS} steps in {s:.2f} s, "
           f"relative error {err:.4f} (held to {FIT_REL_ERR}); launches "
           f"{launches} ({tag})")
@@ -4664,12 +4683,14 @@ def run_fit(tag) -> dict:
 def profile_gradient(fn, tag) -> dict:
     """One call of ``fn`` under ``torch.profiler``: wall time, the
     device's busy time (the sum of kernel and memory records), and the
-    device operations that took most of it, by name."""
+    device operations that took most of it, by name (the kernels' counters
+    off)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            kernel_counters_off():
         fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
@@ -4770,7 +4791,7 @@ def gradients_default(delta_list, dev, tag) -> dict:
     grads = torch.autograd.grad(value, xs)
     torch.cuda.synchronize()
     lin_launches = {**read_counts(), "splat_product_grad_cuda":
-                    sp.splat_product_grad_cuda.launches}
+                    telemetry.launches("splat_product_grad_cuda")}
     lin_peak = torch.cuda.max_memory_allocated()
     value = float(value.detach())
 
@@ -4832,7 +4853,7 @@ def gradients_default(delta_list, dev, tag) -> dict:
             scene.volume, scene.tf, scene.tf_scattering, samples, photons,
             events, lin))
     full_launches = {**read_counts(), "splat_product_grad_cuda":
-                     sp.splat_product_grad_cuda.launches}
+                     telemetry.launches("splat_product_grad_cuda")}
     full_peak = torch.cuda.max_memory_allocated()
     with torch.no_grad():
         dark = float(lin(torch.zeros_like(photons.powers)))

@@ -7,6 +7,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.core.device import resolve
 
 Tensor = torch.Tensor
@@ -20,12 +21,14 @@ class Camera:
     fov_y: float  # degrees, float32 value
 
     @classmethod
+    @telemetry.spanned("scene.camera")
     def create(cls, eye=(0.5, 0.5, -1.5), center=(0.5, 0.5, 0.5),
                up=(0.0, 1.0, 0.0), fov_y=45.0, device=None) -> "Camera":
         dev = resolve(device)
 
         def vec(v):
-            return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+            return telemetry.wait("camera.create", torch.as_tensor,
+                                  np.asarray(v, np.float32), device=dev)
 
         return cls(eye=vec(eye), center=vec(center), up=vec(up),
                    fov_y=float(np.float32(fov_y)))
@@ -40,7 +43,8 @@ class Camera:
         up = torch.linalg.cross(right, fwd)
 
         aspect = width / height
-        fov = torch.tensor(self.fov_y, dtype=torch.float32, device=dev)
+        fov = telemetry.wait("camera.fov", torch.tensor, self.fov_y,
+                             dtype=torch.float32, device=dev)
         tan_half = torch.tan(torch.deg2rad(fov) * 0.5)
         ys = (torch.arange(height, dtype=torch.float32, device=dev)
               + 0.5) / height
@@ -57,4 +61,5 @@ class Camera:
 
     def host(self, name: str) -> np.ndarray:
         """A field as a float32 numpy array (camera setup is host work)."""
-        return getattr(self, name).detach().cpu().numpy()
+        return telemetry.wait("camera.host", torch.Tensor.cpu,
+                              getattr(self, name).detach()).numpy()

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cpm_tpu_torch.core import constants
+from cpm_tpu_torch.core import constants, telemetry
 from cpm_tpu_torch.core.device import resolve
 
 Tensor = torch.Tensor
@@ -53,7 +53,8 @@ class Volume:
     def scene_radius(self) -> float:
         """0.5 * |(|b0|, |b1|, |b2|)| in float32 (the reference's
         getSceneRadius)."""
-        basis = self.basis.detach().to("cpu", F32)
+        basis = telemetry.wait("volume.scene_radius", self.basis.detach().to,
+                               "cpu", F32)
         ext = torch.linalg.vector_norm(basis, dim=0)
         return float(0.5 * torch.linalg.vector_norm(ext))
 
@@ -109,7 +110,8 @@ def _float32(x, device) -> Tensor:
     (its autograd graph survives), anything else through numpy."""
     if isinstance(x, Tensor):
         return x.to(device, F32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return telemetry.wait("types.float32", torch.as_tensor,
+                          np.asarray(x, np.float32), device=device)
 
 
 @dataclass
@@ -123,6 +125,7 @@ class TransferFunction:
     lut: Tensor  # (K, 4) float32, baked
 
     @classmethod
+    @telemetry.spanned("scene.transfer_function")
     def from_points(cls, positions, colors, lut_size: int = 256,
                     device=None) -> "TransferFunction":
         """Tensors are moved, not copied through numpy, so a point list

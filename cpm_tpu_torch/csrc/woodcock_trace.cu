@@ -72,6 +72,19 @@
 // runs while it is active and its step is below the step limit
 // K * ceil(max_steps / K): the plain loop tests its condition only every K
 // flights, and an active lane's own step is the loop's global step.
+//
+// Counters: where args->counts is given (core/telemetry.py hands it over
+// only while a profiler records) the kernel adds its acceptance tests
+// (tentative collisions) and its accepted collisions (scatters and
+// absorptions) to it, as the plain loop counts them. A lane carries both:
+// n_int, and its tape count n_evt, which the wrapper has it count without
+// a tape by record_events = -1 (no row is written below 0), so that the
+// flight loop is the same code with counters or without. Outside the
+// flight loop, at each compaction and at the kernel's end, each thread
+// hands over the counts of the lane it ended: one warp reduction, added by
+// the warp's first thread to the warp's slot in shared memory at a
+// compaction, and to the card's counters at the end (one atomicAdd a
+// warp).
 
 #include <climits>
 #include <cstdint>
@@ -82,6 +95,7 @@ namespace {
 constexpr int kMaxBlock = 256;  // the trace's largest block
 constexpr int kGridThreads = 256;  // the grids' blocks
 constexpr int kHistory = 512;
+constexpr int kCounters = 2;  // tentative, accepted collisions
 constexpr int kLaneWords = 24;  // words of a lane's state (struct Lane)
 constexpr int kAbsorbed = 1;
 constexpr int kFirstDone = 2;
@@ -103,7 +117,8 @@ constexpr int kEvtFirst = 4;
 }  // namespace
 
 // One trace's arguments; kernels/woodcock_trace.py mirrors this layout
-// with ctypes (pointers, then 32-bit integers, then floats).
+// with ctypes (pointers, then 32-bit integers, then floats, then the
+// counters' pointer).
 struct TraceArgs {
   const float* volume;      // (D, H, W)
   const float2* table;      // (gz, gy, gx) (majorant x tau_max, distance)
@@ -144,7 +159,7 @@ struct TraceArgs {
   int phase_type;
   int nss;  // no single scattering
   int clipped;
-  int record_events;  // E, 0 without a tape
+  int record_events;  // E, 0 without a tape, -1: none, tests counted
   int compact_every;  // flights between two compactions, 0 for none
   int tf_global;      // 1: the points read from device memory, opacities
                       // contiguous (tf_stride = tfs_stride = 1)
@@ -157,6 +172,7 @@ struct TraceArgs {
   float cell_min_ext;  // texture extent of one skippable cell
   float phase_g;
   float inv_max_i;     // float32 1 / max_interactions
+  unsigned long long* counts;  // (kCounters,) added to, or null
 };
 
 // The grids' arguments (kernels/woodcock_trace.py:_GridArgs).
@@ -618,7 +634,7 @@ __device__ __forceinline__ void finish_lane(const TraceArgs& a,
                                             const Lane& L, int& most) {
   a.exit_power[L.idx] = (L.flags & kAbsorbed) ? kFltMax : L.power[0];
   encode_direction(L.dir, a.exit_dir + 2 * (long long)L.idx);
-  if (a.record_events) a.n_evt[L.idx] = L.n_evt;
+  if (a.record_events > 0) a.n_evt[L.idx] = L.n_evt;
   most = max(most, L.step);
 }
 
@@ -861,6 +877,11 @@ __device__ __forceinline__ bool flight(const TraceArgs& a, const Tf& tf,
   return active && L.step < a.step_limit;
 }
 
+// The sum of v over the warp's 32 threads (all of them present).
+__device__ __forceinline__ unsigned long long warp_sum(int v) {
+  return __reduce_add_sync(0xffffffffu, (unsigned)v);
+}
+
 // Block b starts with lanes [b * blockDim, (b + 1) * blockDim); with
 // compaction, every compact_every flights it packs its live lanes into its
 // lowest threads and, where next_lane is given, its free threads take the
@@ -874,10 +895,17 @@ __device__ __forceinline__ void trace_lanes(const TraceArgs& a) {
   __shared__ int s_live[kMaxBlock / 32];
   __shared__ int s_claim;
   __shared__ unsigned s_warp_flights;
+  __shared__ unsigned long long s_counts[kMaxBlock / 32][kCounters];
   int* const hp = a.hist != nullptr ? hist : nullptr;
   if (hp != nullptr) {
     for (int k = threadIdx.x; k < kHistory; k += blockDim.x) hist[k] = 0;
     if (threadIdx.x == 0) s_warp_flights = 0;
+  }
+  const bool counting = a.counts != nullptr;
+  if (counting && (threadIdx.x & 31) == 0) {
+    // The warp's first thread owns its slot: no barrier before or after.
+#pragma unroll
+    for (int k = 0; k < kCounters; ++k) s_counts[threadIdx.x >> 5][k] = 0;
   }
   Tf tf = {a.tf_pos, a.tf_opa, a.tf_n};
   Tf tfs = {a.tfs_pos, a.tfs_opa, a.tfs_n};
@@ -898,6 +926,8 @@ __device__ __forceinline__ void trace_lanes(const TraceArgs& a) {
   const int first_claimed = gridDim.x * slots;
   int most = 0;
   Lane L;
+  L.n_evt = 0;  // a thread with no lane hands over nothing
+  L.n_int = 0;
   const int first = blockIdx.x * slots + threadIdx.x;
   bool has = first < a.n && start_lane(a, first, maj_global, L, most);
   bool more = a.next_lane != nullptr;  // lanes may be left to claim
@@ -910,6 +940,16 @@ __device__ __forceinline__ void trace_lanes(const TraceArgs& a) {
       if (!has) finish_lane(a, L, most);
     }
     if (a.compact_every <= 0) break;
+    if (counting) {
+      // The lanes ended in this phase hand over their counts (a live lane
+      // keeps its own; an ended lane's are handed over once).
+      const unsigned long long t = warp_sum(has ? 0 : L.n_evt);
+      const unsigned long long c = warp_sum(has ? 0 : L.n_int);
+      if ((threadIdx.x & 31) == 0) {
+        s_counts[threadIdx.x >> 5][0] += t;
+        s_counts[threadIdx.x >> 5][1] += c;
+      }
+    }
     // Pack the live lanes into the lowest threads, in thread order.
     const unsigned live = __ballot_sync(0xffffffffu, has);
     const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
@@ -940,6 +980,9 @@ __device__ __forceinline__ void trace_lanes(const TraceArgs& a) {
       const int idx = first_claimed + claim + (threadIdx.x - total);
       has = idx < a.n && start_lane(a, idx, maj_global, L, most);
     }
+    // A thread left with no lane holds an ended lane's counts, handed
+    // over, or a copy of a live lane now in another thread.
+    if (counting && !has) L.n_evt = L.n_int = 0;
     if (total == 0 && !more) break;  // the same in every thread
   }
 
@@ -954,6 +997,17 @@ __device__ __forceinline__ void trace_lanes(const TraceArgs& a) {
     }
     if (threadIdx.x == 0)
       atomicAdd(a.warp_flights, (unsigned long long)s_warp_flights);
+  }
+  if (counting) {
+    // Every lane has ended: the last ones' counts and the warp's slot, one
+    // add each to the card's.
+    const unsigned long long t = warp_sum(L.n_evt);
+    const unsigned long long c = warp_sum(L.n_int);
+    if ((threadIdx.x & 31) == 0) {
+      const unsigned long long* s = s_counts[threadIdx.x >> 5];
+      if (t + s[0] != 0ull) atomicAdd(a.counts, t + s[0]);
+      if (c + s[1] != 0ull) atomicAdd(a.counts + 1, c + s[1]);
+    }
   }
 }
 

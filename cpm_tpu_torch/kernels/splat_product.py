@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.core.types import full_fp32_matmul
 from cpm_tpu_torch.kernels import _build
 
@@ -332,30 +333,31 @@ def _raise_on(err: int, what: str) -> None:
 def splat_product_direct(positions: Tensor, powers: Tensor,
                          radius_rel: float, out_dim: tuple) -> Tensor:
     """The direct design on CUDA tensors: one thread per deposit, global
-    atomics. ``splat_product_direct.launches`` counts its launches."""
+    atomics. The recorder counts its launches
+    (``telemetry.launches("splat_product_direct")``)."""
     r, (d, h, w) = _checked_cuda(positions, powers, radius_rel, out_dim)
     out = torch.empty((d, h, w, 3), dtype=torch.float32,
                       device=positions.device)
-    with torch.cuda.device(positions.device):
+    with telemetry.span("splat.launch"), torch.cuda.device(positions.device):
         err = _library().cpm_splat_direct(
             positions.data_ptr(), powers.data_ptr(), positions.shape[0], r,
             float(inverse_radius(r)), d, h, w, kernel_width(r, (d, h, w)),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "direct splat kernel")
-    splat_product_direct.launches += 1
+    telemetry.launched("splat_product_direct")
     return out
 
 
-splat_product_direct.launches = 0
 
 
+@telemetry.spanned("splat.bin")
 def bin_deposits(positions: Tensor, out_dim: tuple):
     """The binning passes on a CUDA tensor of positions: (meta, order).
     ``order`` is (M,) int32 whose first entries are the live deposits'
     indices grouped by output brick; ``meta`` is the int32 scratch the
     tiled splat reads: counts [nb], cursors [nb], offsets [nb + 1], the
-    number of work items [1] and the work items.
-    ``bin_deposits.launches`` counts its launches."""
+    number of work items [1] and the work items. The recorder counts its
+    launches (``telemetry.launches("bin_deposits")``)."""
     _check_deposits("positions", positions)
     _check_grid(out_dim)
     _check_cuda(positions)
@@ -375,11 +377,10 @@ def bin_deposits(positions: Tensor, out_dim: tuple):
             meta.data_ptr(), order.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "binning kernels")
-    bin_deposits.launches += 1
+    telemetry.launched("bin_deposits")
     return meta, order
 
 
-bin_deposits.launches = 0
 
 
 def splat_product_tiled(positions: Tensor, powers: Tensor, radius_rel: float,
@@ -387,8 +388,8 @@ def splat_product_tiled(positions: Tensor, powers: Tensor, radius_rel: float,
     """The tiled design on CUDA tensors: :func:`bin_deposits`, then one
     block per brick segment combines its deposits in a shared-memory tile
     and adds the tile to the grid once. Raises where a tile does not fit in
-    shared memory. ``splat_product_tiled.launches`` counts its
-    launches."""
+    shared memory. The recorder counts its launches
+    (``telemetry.launches("splat_product_tiled")``)."""
     r, dim = _checked_cuda(positions, powers, radius_rel, out_dim)
     if not tiled_fits(r, dim):
         raise ValueError(
@@ -399,7 +400,7 @@ def splat_product_tiled(positions: Tensor, powers: Tensor, radius_rel: float,
     meta, order = bin_deposits(positions, dim)
     out = torch.empty((d, h, w, 3), dtype=torch.float32,
                       device=positions.device)
-    with torch.cuda.device(positions.device):
+    with telemetry.span("splat.launch"), torch.cuda.device(positions.device):
         err = _library().cpm_splat_tiled(
             positions.data_ptr(), powers.data_ptr(), order.data_ptr(),
             meta.data_ptr(), max_work_items(positions.shape[0], dim), r,
@@ -407,11 +408,10 @@ def splat_product_tiled(positions: Tensor, powers: Tensor, radius_rel: float,
             kernel_width(r, dim), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "tiled splat kernel")
-    splat_product_tiled.launches += 1
+    telemetry.launched("splat_product_tiled")
     return out
 
 
-splat_product_tiled.launches = 0
 
 
 def splat_product(positions: Tensor, powers: Tensor, radius_rel: float,
@@ -501,7 +501,7 @@ def _launch_grad(positions: Tensor, grad: Tensor, consts: tuple,
         with torch.cuda.device(dev):
             err = launch()
     _raise_on(err, "splat backward kernel")
-    splat_product_grad_cuda.launches += 1
+    telemetry.launched("splat_product_grad_cuda")
     return out
 
 
@@ -510,13 +510,13 @@ def splat_product_grad_cuda(positions: Tensor, grad: Tensor,
     """The splat's backward on CUDA tensors: ``splat_grad_kernel``, one
     thread per slot gathering the grid gradient over its window; raises
     for a grid whose d + h + w cell centres pass a block's shared memory.
-    ``splat_product_grad_cuda.launches`` counts its launches."""
+    The recorder counts its launches
+    (``telemetry.launches("splat_product_grad_cuda")``)."""
     consts, dim = _checked_grad(positions, grad, radius_rel, out_dim)
     _check_cuda(positions)
     return _launch_grad(positions, grad, consts, dim)
 
 
-splat_product_grad_cuda.launches = 0
 
 
 def splat_product_grad(positions: Tensor, grad: Tensor, radius_rel: float,

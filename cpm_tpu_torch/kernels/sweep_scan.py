@@ -49,9 +49,10 @@ stream; where a gradient is asked for it goes through :class:`SweepScan`,
 whose backward launches the backward kernels. They raise on tensors of
 another device, type, shape or layout, on a transfer function without a
 point, on a constant that requires grad and on a launch that fails.
-``sweep_planes.launches`` (forward and backward), ``sweep_scan_forward
-.launches`` (the march), ``sweep_scan_backward.launches`` (the gradient
-march) and ``sweep_fold.launches`` count the launches. :func:`_forward`
+The recorder (``core/telemetry.py``) counts the launches under the
+wrappers' names: ``sweep_planes`` (forward and backward),
+``sweep_scan_forward`` (the march), ``sweep_scan_backward`` (the gradient
+march) and ``sweep_fold``. :func:`_forward`
 and :func:`_backward` are the forward and the backward with the scratch
 they filled, which :func:`_filled` and :func:`_grad_planes` read for
 checks.
@@ -67,6 +68,7 @@ from typing import NamedTuple
 
 import torch
 
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.kernels import _build
 
 Tensor = torch.Tensor
@@ -379,7 +381,7 @@ def sweep_planes(args: _Args, lo: int, hi: int, dev) -> None:
     scan that ``args`` describes, into the scratch that it points at."""
     args.k_lo, args.k_hi = lo, hi
     _launch(_library().cpm_sweep_planes, args, dev, "plane pre-pass")
-    sweep_planes.launches += 1
+    telemetry.launched("sweep_planes")
 
 
 def _forward(vol_p: Tensor, light_p: Tensor, tf_pos: Tensor, tf_col: Tensor,
@@ -403,7 +405,7 @@ def _forward(vol_p: Tensor, light_p: Tensor, tf_pos: Tensor, tf_col: Tensor,
         sweep_planes(args, lo, hi, dev)
         args.first, args.last = int(i == 0), int(i == len(plan) - 1)
         _launch(lib.cpm_sweep_scan, args, dev, "forward")
-        sweep_scan_forward.launches += 1
+        telemetry.launched("sweep_scan_forward")
     return out, (buf, fields, plan[-1])
 
 
@@ -438,7 +440,7 @@ def sweep_fold(args: _Args, dev) -> None:
     ``args`` describes, added into the gradients of the slabs whose lerps
     made those planes."""
     _launch(_library().cpm_sweep_fold, args, dev, "fold")
-    sweep_fold.launches += 1
+    telemetry.launched("sweep_fold")
 
 
 def _backward(vol_p: Tensor, light_p: Tensor, tf_pos: Tensor,
@@ -470,7 +472,7 @@ def _backward(vol_p: Tensor, light_p: Tensor, tf_pos: Tensor,
         sweep_planes(args, lo, hi, dev)
         args.first, args.last = int(i == 0), int(i == len(plan) - 1)
         _launch(lib.cpm_sweep_scan_grad, args, dev, "backward")
-        sweep_scan_backward.launches += 1
+        telemetry.launched("sweep_scan_backward")
         sweep_fold(args, dev)
     return grads, (buf, fields, plan[-1])
 
@@ -498,12 +500,6 @@ def sweep_scan_backward(vol_p: Tensor, light_p: Tensor, tf_pos: Tensor,
     are sums of atomic adds, whose order changes from run to run."""
     return _backward(vol_p, light_p, tf_pos, tf_col, c, u, v, ambient, out,
                      grad_out, needs)[0]
-
-
-sweep_planes.launches = 0
-sweep_scan_forward.launches = 0
-sweep_scan_backward.launches = 0
-sweep_fold.launches = 0
 
 
 class SweepScan(torch.autograd.Function):

@@ -15,14 +15,15 @@ imported.
 
 :func:`trace_grids_cuda` builds the grids of one trace (three launches)
 as one interleaved (majorant, distance) table and returns its two halves
-and the largest majorant; ``trace_grids_cuda.launches`` counts its calls.
+and the largest majorant; the recorder (``core/telemetry.py``) counts its
+calls under its name.
 :func:`trace_woodcock_cuda` takes the constants of one trace
 (``ops/tracer.trace_constants``) and the light samples as CUDA tensors,
 checks them, allocates the outputs with the reference's sentinels, chooses
 the launch (:func:`launch_shape`, from the card's SMs and the kernel's
 occupancy) and launches the kernel on the current stream. Both raise on
 tensors of another device, type, shape or layout and on a launch that
-fails; ``trace_woodcock_cuda.launches`` counts its launches and
+fails; the recorder counts its launches under its name and
 ``.last_shape`` is the last one's :class:`LaunchShape`.
 
 Transfer functions of any size: a block keeps both transfer functions'
@@ -45,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.kernels import _build
 
 Tensor = torch.Tensor
@@ -96,7 +98,7 @@ class _Args(ctypes.Structure):
         ("clip_lo", ctypes.c_float * 3), ("clip_hi", ctypes.c_float * 3),
         ("step_size", ctypes.c_float), ("sbi", ctypes.c_float),
         ("cell_min_ext", ctypes.c_float), ("phase_g", ctypes.c_float),
-        ("inv_max_i", ctypes.c_float)]
+        ("inv_max_i", ctypes.c_float), ("counts", ctypes.c_void_p)]
 
 
 class _GridArgs(ctypes.Structure):
@@ -310,8 +312,8 @@ def trace_grids_cuda(volume: Tensor, tf_pos: Tensor, tf_opa: Tensor,
     cells of dilation, ``cap`` the distance cap and ``tau`` the float32
     factor of the majorants. ``maj`` and ``dist`` are the two (gz, gy, gx)
     halves of one interleaved table, which the trace kernel reads with one
-    load; ``maj_global`` is a 0-d tensor. ``trace_grids_cuda.launches``
-    counts its calls, ``.tf_global`` whether the last one read the points
+    load; ``maj_global`` is a 0-d tensor. The recorder counts
+    its calls, ``.tf_global`` whether the last one read the points
     from device memory (:func:`tf_in_shared`)."""
     dev = volume.device
     if dev.type != "cuda":
@@ -350,23 +352,24 @@ def trace_grids_cuda(volume: Tensor, tf_pos: Tensor, tf_opa: Tensor,
         raise _too_much_shared(f"rows of {gx} cells")
     if err != 0:
         raise RuntimeError(f"trace grids kernels: CUDA error {err}")
-    trace_grids_cuda.launches += 1
+    telemetry.launched("trace_grids_cuda")
     trace_grids_cuda.tf_global = tf_global
     return table[..., 0], table[..., 1], maj_global
 
 
-trace_grids_cuda.launches = 0
 trace_grids_cuda.tf_global = None
 
 
 def _prepare(c, volume: Tensor, origins: Tensor, directions: Tensor,
              powers: Tensor, tspan: Tensor, lane_ids: Tensor, key: tuple,
-             record_events: int, return_stats: bool):
+             record_events: int, return_stats: bool,
+             counts: Tensor | None = None):
     """Check the inputs, allocate the outputs on their device with the
     reference's sentinels (FLT_MAX positions, zero powers and directions,
     a zeroed tape), choose the launch and pack the kernel's arguments:
     (arguments, launch shape, outputs, tensors the launch reads that no
-    caller holds)."""
+    caller holds). ``counts``: the (2,) int64 counters the kernel adds
+    its tentative and accepted collisions to, or None."""
     dev = volume.device
     n = origins.shape[0] if origins.dim() == 2 else -1
     d, h, w = c.shape
@@ -456,11 +459,13 @@ def _prepare(c, volume: Tensor, origins: Tensor, directions: Tensor,
         n, d, h, w, gz, gy, gx, np_, nq, tf_stride, tfs_stride,
         int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF, max_i,
         c.step_limit, cell_shift, cell_mul, c.ring, c.phase_type,
-        int(c.no_single_scattering), int(c.clipped), record_events,
+        int(c.no_single_scattering), int(c.clipped),
+        # -1: no tape, but the lanes count their tests for the counters.
+        record_events or (-1 if counts is not None else 0),
         shape.compact_every, int(tf_global),
         floats(c.vdims), floats(c.cell_ext), floats(c.clip_min),
         floats(c.clip_max), c.step_size, c.sbi, c.cell_min_ext, c.phase_g,
-        float(np.float32(1.0) / np.float32(max_i)))
+        float(np.float32(1.0) / np.float32(max_i)), _ptr(counts))
     return args, shape, out, (table, next_lane, tf_opa, tfs_opa)
 
 
@@ -482,29 +487,34 @@ def trace_woodcock_cuda(c, volume: Tensor, origins: Tensor,
     ``return_stats`` the active lanes of each flight (at min(flight, 511)),
     the most flights a lane was active for and the passes warps made
     through a flight (32 of them over the active lane-flights is the
-    kernel's SIMT efficiency). Nothing is read back to the host."""
+    kernel's SIMT efficiency). While the recorder records, the kernel adds
+    its tentative collisions (acceptance tests) and accepted collisions
+    (scatters and absorptions) to the recorder's device counters. Nothing
+    is read back to the host."""
     dev = volume.device
     if dev.type != "cuda":
         raise ValueError(f"the volume is on {dev}; the trace kernel takes "
                          "CUDA tensors")
-    args, shape, out, _keep = _prepare(c, volume, origins, directions,
-                                       powers, tspan, lane_ids, key,
-                                       record_events, return_stats)
+    with telemetry.span("trace.prepare"):
+        counts = telemetry.device_counters(dev)
+        args, shape, out, _keep = _prepare(c, volume, origins, directions,
+                                           powers, tspan, lane_ids, key,
+                                           record_events, return_stats,
+                                           counts)
     if origins.shape[0] == 0:
         return out
-    with torch.cuda.device(dev):
+    with telemetry.span("trace.launch"), torch.cuda.device(dev):
         err = _library().cpm_woodcock_trace(
             ctypes.byref(args), shape.grid, shape.block,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"Woodcock trace kernel: CUDA error {err}")
-    trace_woodcock_cuda.launches += 1
+    telemetry.launched("trace_woodcock_cuda")
     trace_woodcock_cuda.last_shape = shape
     trace_woodcock_cuda.tf_global = bool(args.tf_global)
     return out
 
 
-trace_woodcock_cuda.launches = 0
 trace_woodcock_cuda.last_shape = None  # the LaunchShape of the last launch
 # Whether the last launch read the transfer functions from device memory.
 trace_woodcock_cuda.tf_global = None

@@ -8,13 +8,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.core.device import resolve
 
 Tensor = torch.Tensor
 
 
 def _as(x, like: Tensor) -> Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    if isinstance(x, Tensor):
+        return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    return telemetry.wait("intersect.box", torch.as_tensor, x,
+                          dtype=torch.float32, device=like.device)
 
 
 def ray_box(origin: Tensor, direction: Tensor, box_min=0.0, box_max=1.0,

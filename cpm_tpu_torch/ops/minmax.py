@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.core.types import UniformGrid3D, Volume
 
 Tensor = torch.Tensor
@@ -26,6 +27,7 @@ def _pool_max(x: Tensor, cell: int) -> Tensor:
     return out.reshape(*lead, *out.shape[-3:])
 
 
+@telemetry.spanned("importance.minmax")
 def volume_min_max(volume: Volume, cell_size: int = 8) -> UniformGrid3D:
     """(gz, gy, gx, 2) per-cell (min, max) with gz = ceil(D / cell_size)."""
     data = volume.data
@@ -34,7 +36,9 @@ def volume_min_max(volume: Volume, cell_size: int = 8) -> UniformGrid3D:
     return UniformGrid3D(
         data=sequence_min_max(data, cell_size),
         cell_dim=torch.full((3,), float(cell_size), device=dev),
-        volume_dim=torch.tensor([w, h, d], dtype=torch.float32, device=dev),
+        volume_dim=telemetry.wait("minmax.volume_dim", torch.tensor,
+                                  [w, h, d], dtype=torch.float32,
+                                  device=dev),
     )
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.core.device import resolve
 from cpm_tpu_torch.core.types import (LightSamples, PhotonData,
                                       UniformGrid3D, decode_direction)
@@ -94,8 +95,9 @@ def grid_segment_integral_quadrature(grid: Tensor, x1: Tensor, x2: Tensor,
     be missed, so use the DDA where exact drain coverage matters more."""
     gz, gy, gx = grid.shape
     dev = grid.device
-    hi = torch.tensor([gx - 1, gy - 1, gz - 1], dtype=torch.float32,
-                      device=dev)
+    hi = telemetry.wait("path_importance.grid_hi", torch.tensor,
+                        [gx - 1, gy - 1, gz - 1], dtype=torch.float32,
+                        device=dev)
     ts = (torch.arange(n_samples, dtype=torch.float32, device=dev)
           + 0.5) / n_samples
     # (K, M, 3) sample points in voxel coordinates -> cell indices

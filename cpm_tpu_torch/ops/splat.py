@@ -21,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from cpm_tpu_torch.core import constants
+from cpm_tpu_torch.core import constants, telemetry
 from cpm_tpu_torch.core.types import PhotonData, relative_irradiance_scale
 from cpm_tpu_torch.kernels.splat_product import (PRODUCT_KERNEL_MATCH,
                                                  SplatProduct,
@@ -181,9 +181,12 @@ def _dispatch(method: str, pos: Tensor, pow_: Tensor, valid: Tensor,
     if method not in ("matmul", "cuda"):
         raise ValueError(f"unknown splat method {method!r}")
     fn = splat_product_torch if method == "matmul" else SplatProduct.apply
-    return fn(*_product_list(pos, pow_, valid, scale), radius_rel, out_dim)
+    with telemetry.span("splat.product_list"):
+        deposits = _product_list(pos, pow_, valid, scale)
+    return fn(*deposits, radius_rel, out_dim)
 
 
+@telemetry.spanned("splat.all")
 def splat_all(photons: PhotonData, out_dim: tuple, footprint: int = 4,
               n_total: int | None = None,
               method: str = "scatter") -> Tensor:
@@ -194,11 +197,13 @@ def splat_all(photons: PhotonData, out_dim: tuple, footprint: int = 4,
     only its slice of the photons, so that the ranks' grids sum to the
     single-device grid. The scale is applied to the powers before the
     backend (and the CUDA kernel's wrapper) sees them."""
-    pos, pow_, valid, scale = _flatten(photons, n_total)
+    with telemetry.span("splat.deposits"):
+        pos, pow_, valid, scale = _flatten(photons, n_total)
     return _dispatch(method, pos, pow_, valid, photons.radius_rel, scale,
                      out_dim, footprint)
 
 
+@telemetry.spanned("splat.selected_delta")
 def splat_selected_delta(old: PhotonData, new: PhotonData, indices: Tensor,
                          valid: Tensor, out_dim: tuple, footprint: int = 4,
                          method: str = "scatter") -> Tensor:
@@ -206,11 +211,13 @@ def splat_selected_delta(old: PhotonData, new: PhotonData, indices: Tensor,
     photons' old deposits (weight -1) and new deposits (weight +1) as one
     signed list. Returns the light-volume delta, to be added to the
     previous volume. ``valid`` masks budget padding lanes."""
-    pos, pow_, pvalid = _signed_selected(old, new, indices, valid)
+    with telemetry.span("splat.deposits"):
+        pos, pow_, pvalid = _signed_selected(old, new, indices, valid)
     return _dispatch(method, pos, pow_, pvalid, old.radius_rel,
                      _irradiance_scale(old), out_dim, footprint)
 
 
+@telemetry.spanned("splat.selected")
 def splat_selected(photons: PhotonData, indices: Tensor, valid: Tensor,
                    out_dim: tuple, footprint: int = 4,
                    multiplier: float = 1.0,
@@ -218,7 +225,8 @@ def splat_selected(photons: PhotonData, indices: Tensor, valid: Tensor,
     """Splat only the photons whose light-sample ids are in ``indices``,
     scaled by ``multiplier``: -1 removes a photon's previous contribution,
     +1 adds the retraced one. ``valid`` masks budget padding lanes."""
-    pos, pow_, pvalid = _flatten_selected(photons, indices, valid)
+    with telemetry.span("splat.deposits"):
+        pos, pow_, pvalid = _flatten_selected(photons, indices, valid)
     return _dispatch(method, pos, pow_, pvalid, photons.radius_rel,
                      _irradiance_scale(photons, multiplier), out_dim,
                      footprint)

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cpm_tpu_torch.core import constants
+from cpm_tpu_torch.core import constants, telemetry
 from cpm_tpu_torch.core.camera import Camera
 from cpm_tpu_torch.core.config import RenderConfig
 from cpm_tpu_torch.core.types import (TransferFunction, Volume,
@@ -45,6 +45,7 @@ Tensor = torch.Tensor
 _EPS_PARALLEL = 1e-4
 
 
+@telemetry.spanned("render.principal_axis")
 def principal_axis(camera: Camera) -> tuple[int, int]:
     """(axis, sign) of the dominant camera-forward component (host)."""
     fwd = camera.host("center") - camera.host("eye")
@@ -89,6 +90,7 @@ class SweepSchedule:
     pix_ok: Tensor  # (P,) bool
 
 
+@telemetry.spanned("render.schedule")
 def _plane_schedule(camera: Camera, axis: int, sign: int, n_planes: int,
                     width: int, height: int) -> SweepSchedule:
     a = axis
@@ -102,7 +104,7 @@ def _plane_schedule(camera: Camera, axis: int, sign: int, n_planes: int,
     za = (ks + 0.5) / S if sign > 0 else (S - 0.5 - ks) / S
     in_front = (za - o_a) * float(sign) > 1e-6
     k0 = torch.argmax(in_front.to(torch.int32))
-    z_base = za[k0]
+    z_base = telemetry.wait("render.z_base", za.__getitem__, k0)
     depth0 = (z_base - o_a) * float(sign)
     w_planes = (za - o_a) / torch.where(torch.abs(z_base - o_a) < 1e-8,
                                         1e-8, z_base - o_a)
@@ -234,6 +236,7 @@ def _scan_method(method: str, device: torch.device) -> str:
     return method
 
 
+@telemetry.spanned("render.scan")
 def _scan_planes(vol_p: Tensor, light_p: Tensor, tf: TransferFunction,
                  sched: SweepSchedule, u: Tensor, v: Tensor,
                  ambient: float, method: str = "auto") -> Tensor:
@@ -243,7 +246,8 @@ def _scan_planes(vol_p: Tensor, light_p: Tensor, tf: TransferFunction,
     tensors, differentiable through ``kernels/sweep_scan.SweepScan``; the
     plain loop for CPU tensors), "torch" (the plain loop) or "cuda"."""
     method = _scan_method(method, vol_p.device)
-    c = scan_constants(vol_p, light_p, sched, u, v)
+    with telemetry.span("render.scan_constants"):
+        c = scan_constants(vol_p, light_p, sched, u, v)
     if method == "cuda":
         return sweep_scan.sweep_scan(vol_p, light_p, tf.positions,
                                      tf.colors, c, u, v, ambient)
@@ -575,6 +579,7 @@ def _fma(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
     return torch.addcmul(c.double(), a.double(), b.double()).float()
 
 
+@telemetry.spanned("render.warp")
 def _warp(inter: Tensor, sched: SweepSchedule, axis: int,
           width: int, height: int) -> Tensor:
     """Final 2D bilinear warp: intermediate image -> (H, W, 4) screen."""
@@ -617,6 +622,7 @@ def base_grid(sched: SweepSchedule, inter_u: int, inter_v: int):
     return u, v
 
 
+@telemetry.spanned("render.permute")
 def permute_volumes(vol_data: Tensor, light_data: Tensor, axis: int):
     _, _, perm = _axis_perm(axis)
     return (vol_data.permute(perm).contiguous(),
@@ -655,6 +661,7 @@ class SweepPlan(NamedTuple):
     scans: list
 
 
+@telemetry.spanned("render.plan")
 def sweep_plan(volume: Volume, light_volume: Tensor, camera: Camera,
                config: RenderConfig) -> SweepPlan:
     """What :func:`sweep_render` scans for ``config``:
@@ -678,6 +685,7 @@ def sweep_plan(volume: Volume, light_volume: Tensor, camera: Camera,
     return SweepPlan(axis, vol_p, light_p, scans)
 
 
+@telemetry.spanned("render.sweep")
 def sweep_render(volume: Volume, tf: TransferFunction, light_volume: Tensor,
                  camera: Camera, config: RenderConfig,
                  return_intermediate: bool = False, method: str = "auto"):

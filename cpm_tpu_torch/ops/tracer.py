@@ -39,6 +39,10 @@ consumer's ``< 1e30`` test still reads as unused). ``return_stats`` adds
 the loop's counters; ``record_events=E`` adds the event tape of the
 trajectory gradients (:class:`TraceEvents`, read by ``ops/score_grad.py``).
 
+While the recorder (``core/telemetry.py``) records, both forms count
+their tentative collisions (acceptance tests) and accepted collisions
+(scatters and absorptions) into its device counters, with no host wait.
+
 The trace records no autograd graph (it runs under ``torch.no_grad``):
 its sampling decisions are discrete, and ``ops/replay.py`` recomputes the
 powers differentiably from what it stored.
@@ -52,7 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cpm_tpu_torch.core import constants
+from cpm_tpu_torch.core import constants, telemetry
 from cpm_tpu_torch.core.config import TracerConfig
 from cpm_tpu_torch.core.types import (LightSamples, PhotonData,
                                       TransferFunction, Volume,
@@ -93,6 +97,7 @@ class TraceEvents(NamedTuple):
     counts: Tensor  # (N,) int32, tests made (may exceed E)
 
 
+@telemetry.spanned("trace.grids")
 def majorant_grids(volume: Volume, tf: TransferFunction,
                    config: TracerConfig, method: str = "auto"):
     """(maj, dist, maj_global, cell_min_ext): per-cell majorant opacity
@@ -217,6 +222,7 @@ def _method(method: str, device: torch.device) -> str:
 
 
 @torch.no_grad()
+@telemetry.spanned("trace.photons")
 def trace_photons(volume: Volume, tf: TransferFunction,
                   tf_scattering: TransferFunction,
                   light_samples: LightSamples, base_key: tuple,
@@ -257,21 +263,24 @@ def trace_photons(volume: Volume, tf: TransferFunction,
         raise ValueError(f"lane_ids must be ({n},), got "
                          f"{tuple(lane_ids.shape)}")
     key = (int(base_key[0]), int(base_key[1]))
-    c = trace_constants(volume, tf, tf_scattering, config, grids, method)
+    with telemetry.span("trace.constants"):
+        c = trace_constants(volume, tf, tf_scattering, config, grids,
+                            method)
     run = _trace_kernel if method == "cuda" else _trace_wavefront
     (out_pos, out_pow, out_dir, exit_power, exit_dir), extra = run(
         c, volume, light_samples, key, lane_ids, return_stats, record_events)
     # Half storage (photon.cl:49-63): the FLT_MAX sentinel becomes +inf.
     dt = getattr(torch, config.photon_dtype)
-    photons = PhotonData(
-        positions=out_pos.to(dt).contiguous(),
-        powers=out_pow.to(dt).contiguous(),
-        directions=out_dir.to(dt).contiguous(),
-        exit_power=exit_power, exit_direction=exit_dir,
-        radius_rel=f32_scalar(config.radius_rel),
-        scene_radius=f32_scalar(constants.DEFAULT_SCENE_RADIUS),
-        iteration=0,
-    )
+    with telemetry.span("trace.outputs"):
+        photons = PhotonData(
+            positions=out_pos.to(dt).contiguous(),
+            powers=out_pow.to(dt).contiguous(),
+            directions=out_dir.to(dt).contiguous(),
+            exit_power=exit_power, exit_direction=exit_dir,
+            radius_rel=f32_scalar(config.radius_rel),
+            scene_radius=f32_scalar(constants.DEFAULT_SCENE_RADIUS),
+            iteration=0,
+        )
     if return_stats or record_events:
         return photons, extra
     return photons
@@ -306,7 +315,8 @@ def _trace_kernel(c: TraceConstants, volume: Volume,
         # The active lane-flights are the history's sum, which the
         # wavefront accumulates in float32: equal below 2^24.
         k = c.flights
-        iters = k * -(-int(out.max_active[0]) // k)
+        most = telemetry.wait("trace.stats", int, out.max_active[0])
+        iters = k * -(-most // k)
         extra = _stats(iters, out.active_history.sum(dtype=torch.int64).to(
             torch.float32), out.active_history, n)
     elif record_events:
@@ -315,6 +325,7 @@ def _trace_kernel(c: TraceConstants, volume: Volume,
     return out[:5], extra
 
 
+@telemetry.spanned("trace.wavefront")
 def _trace_wavefront(c: TraceConstants, volume: Volume,
                      light_samples: LightSamples, key: tuple,
                      lane_ids: Tensor, return_stats: bool,
@@ -381,6 +392,7 @@ def _trace_wavefront(c: TraceConstants, volume: Volume,
     if return_stats:
         active_work = torch.zeros((), dtype=torch.float32, device=dev)
         active_hist = torch.zeros(_HISTORY, dtype=torch.int32, device=dev)
+    counts = telemetry.device_counters(dev)
     if record_events:
         # Flat tape rows lane * E + e, and one row past them that takes
         # the writes of lanes that test nothing this flight.
@@ -454,6 +466,9 @@ def _trace_wavefront(c: TraceConstants, volume: Volume,
             out_pow = torch.where(slot, stored_power[:, None, :], out_pow)
             out_dir = torch.where(slot, encode_direction(dir_)[:, None, :],
                                   out_dir)
+            if counts is not None:
+                counts[0] += (active & ~exited & ~skip).sum()
+                counts[1] += interact.sum()
             if record_events:
                 # Every acceptance test, in the reference's priority
                 # (tracer.py:447-464): rejected, first event, forced stop
@@ -518,6 +533,7 @@ def _trace_wavefront(c: TraceConstants, volume: Volume,
 
 
 @torch.no_grad()
+@telemetry.spanned("trace.photons_chunked")
 def trace_photons_chunked(volume: Volume, tf: TransferFunction,
                           tf_scattering: TransferFunction,
                           light_samples: LightSamples, base_key: tuple,
@@ -561,6 +577,7 @@ def trace_photons_chunked(volume: Volume, tf: TransferFunction,
         exit_direction=torch.cat([o.exit_direction for o in outs]))
 
 
+@telemetry.spanned("pipeline.merge_recomputed")
 def merge_recomputed(photons: PhotonData, new: PhotonData, indices: Tensor,
                      valid: Tensor) -> PhotonData:
     """Copy the retraced subset back into the full photon buffer: ``new``
@@ -569,7 +586,7 @@ def merge_recomputed(photons: PhotonData, new: PhotonData, indices: Tensor,
     PhotonData; ``photons`` is left as it was."""
     # The one place whose shape depends on the data: the valid lanes'
     # numbers (one read of their count by the host on a CUDA device).
-    lanes = torch.nonzero(valid)[:, 0]
+    lanes = telemetry.wait("trace.merge_lanes", torch.nonzero, valid)[:, 0]
     idx = indices.to(torch.int64)[lanes]
 
     def put(old: Tensor, fresh: Tensor, dim: int) -> Tensor:

@@ -18,6 +18,10 @@ function over (Scene, PhotonMapState), and :func:`step` dispatches on
 Everything runs on the device of the scene's tensors. ``n_remaining``,
 ``recompute_phase`` and the progressive iteration are Python ints in the
 state, so a correlated step reads its counts back from the device once.
+
+Each path is a span of the recorder (``core/telemetry.py``), and each
+stage of a correlated step a span inside it; every wait of the host for
+the card goes through the recorder's ``wait``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from cpm_tpu_torch.core import lights as L
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.core.config import PipelineConfig
 from cpm_tpu_torch.core.scene import Scene
 from cpm_tpu_torch.core.types import (LightSamples, PhotonData,
@@ -154,6 +159,7 @@ def _trace(scene: Scene, samples: LightSamples, key: tuple,
         config.tracer, lane_ids=lane_ids)
 
 
+@telemetry.spanned("pipeline.full_trace_step")
 def full_trace_step(scene: Scene, state: PhotonMapState,
                     config: PipelineConfig) -> PhotonMapState:
     """Trace every light sample and rebuild the light volume, restarting
@@ -175,6 +181,7 @@ def full_trace_step(scene: Scene, state: PhotonMapState,
         n_remaining=0)
 
 
+@telemetry.spanned("pipeline.progressive_step")
 def progressive_step(scene: Scene, state: PhotonMapState,
                      config: PipelineConfig) -> PhotonMapState:
     """One progressive-refinement tick: advance the iteration, shrink the
@@ -193,8 +200,8 @@ def progressive_step(scene: Scene, state: PhotonMapState,
                          method=splat_method(config, scene.device))
     # Divisor as a device tensor: a CUDA tensor divided by a host number
     # is multiplied by its rounded reciprocal instead.
-    it = torch.tensor(float(iteration), dtype=torch.float32,
-                      device=scene.device)
+    it = telemetry.wait("step.iteration", torch.tensor, float(iteration),
+                        dtype=torch.float32, device=scene.device)
     accum = (state.light_volume_accum * it + lv) / (it + 1.0)
     return dataclasses.replace(state, photons=photons, light_volume=lv,
                                light_volume_accum=accum)
@@ -232,6 +239,7 @@ def progressive_step_guided(scene: Scene, state: PhotonMapState,
 
 # --- correlated selective recomputation -----------------------------------
 
+@telemetry.spanned("importance.path")
 def recompute_importance(config: PipelineConfig,
                          importance_grid: UniformGrid3D,
                          photons: PhotonData,
@@ -267,14 +275,15 @@ def recompute_budget(config: PipelineConfig, n_photons: int) -> int:
     return max(256, -(-b // 256) * 256)
 
 
+@telemetry.spanned("pipeline.selected_samples")
 def selected_samples(samples: LightSamples, indices: Tensor,
                      valid: Tensor) -> tuple[LightSamples, Tensor]:
     """The sub-bundle of a retrace batch and its lanes' photon ids: a
     padding lane (``valid`` False) reads light sample 0 and gets the span
     (0, -1), so it never starts."""
     safe = torch.where(valid, indices, 0)
-    never = torch.tensor([0.0, -1.0], dtype=torch.float32,
-                         device=indices.device)
+    never = telemetry.wait("step.never_span", torch.tensor, [0.0, -1.0],
+                           dtype=torch.float32, device=indices.device)
     sub = LightSamples(
         origins=samples.origins[safe], directions=samples.directions[safe],
         powers=samples.powers[safe],
@@ -307,12 +316,14 @@ def _select_and_retrace(scene: Scene, state: PhotonMapState,
     else:
         imp = recompute_importance(config, importance_grid, photons,
                                    state.light_samples)
-    indices, valid, n_remaining = select.select_photons_to_recompute(
-        imp, budget, exclude=state.retraced)
+    with telemetry.span("importance.select"):
+        indices, valid, n_remaining = select.select_photons_to_recompute(
+            imp, budget, exclude=state.retraced)
 
     sub, safe = selected_samples(state.light_samples, indices, valid)
-    new = _trace(scene, sub, rng.fold_in(state.key, iteration), config,
-                 lane_ids=safe)
+    with telemetry.span("pipeline.retrace"):
+        new = _trace(scene, sub, rng.fold_in(state.key, iteration), config,
+                     lane_ids=safe)
     new = dataclasses.replace(
         new, radius_rel=photons.radius_rel,
         scene_radius=photons.scene_radius, iteration=iteration)
@@ -320,6 +331,7 @@ def _select_and_retrace(scene: Scene, state: PhotonMapState,
     return photons, merged, indices, valid, n_remaining
 
 
+@telemetry.spanned("pipeline.after_batch")
 def _after_batch(state: PhotonMapState, merged: PhotonData, lv: Tensor,
                  indices: Tensor, valid: Tensor,
                  n_remaining: int) -> PhotonMapState:
@@ -328,7 +340,8 @@ def _after_batch(state: PhotonMapState, merged: PhotonData, lv: Tensor,
     n = merged.n
     if n_remaining > 0:
         hit = torch.zeros(n + 1, dtype=torch.bool, device=valid.device)
-        hit[torch.where(valid, indices, n)] = True
+        telemetry.wait("step.retraced_mask", hit.__setitem__,
+                       torch.where(valid, indices, n), True)
         retraced = state.retraced | hit[:n]
     else:
         retraced = torch.zeros_like(state.retraced)
@@ -338,6 +351,7 @@ def _after_batch(state: PhotonMapState, merged: PhotonData, lv: Tensor,
         recompute_phase=state.recompute_phase + 1)
 
 
+@telemetry.spanned("pipeline.correlated_step")
 def correlated_step(scene: Scene, state: PhotonMapState,
                     config: PipelineConfig, importance_grid: UniformGrid3D,
                     budget: int) -> PhotonMapState:
@@ -363,10 +377,12 @@ def correlated_step(scene: Scene, state: PhotonMapState,
     # n_changed <= budget, so a budget under the threshold rules the full
     # resplat out without asking the device for n_changed.
     if budget < threshold:
-        n_remaining, full = int(n_remaining), False
+        n_remaining = telemetry.wait("step.n_remaining", int, n_remaining)
+        full = False
     else:
-        n_remaining, n_changed = torch.stack(
-            [n_remaining, valid.sum()]).tolist()
+        n_remaining, n_changed = telemetry.wait(
+            "step.n_remaining", torch.Tensor.tolist,
+            torch.stack([n_remaining, valid.sum()]))
         full = n_changed >= threshold
     if full:
         lv = splat.splat_all(merged, dim, fp, method=method)
@@ -376,6 +392,7 @@ def correlated_step(scene: Scene, state: PhotonMapState,
     return _after_batch(state, merged, lv, indices, valid, n_remaining)
 
 
+@telemetry.spanned("pipeline.correlated_step_scalable")
 def correlated_step_scalable(scene: Scene, state: PhotonMapState,
                              config: PipelineConfig,
                              importance_grid: UniformGrid3D,
@@ -394,11 +411,13 @@ def correlated_step_scalable(scene: Scene, state: PhotonMapState,
     added = splat.splat_selected(merged, indices, valid, dim, fp,
                                  method=method)
     lv = state.light_volume - removed + added
-    return _after_batch(state, merged, lv, indices, valid, int(n_remaining))
+    return _after_batch(state, merged, lv, indices, valid, telemetry.wait(
+        "step.n_remaining", int, n_remaining))
 
 
 # --- importance-grid construction -----------------------------------------
 
+@telemetry.spanned("importance.grid")
 def build_importance_grid(scene: Scene, config: PipelineConfig,
                           weights: importance_mod.ImportanceWeights | None
                           = None,
@@ -414,13 +433,14 @@ def build_importance_grid(scene: Scene, config: PipelineConfig,
         weights = importance_mod.ImportanceWeights()
     w = weights.normalized()
     mm = minmax.volume_min_max(scene.volume, config.recompute.grid_cell_size)
-    if volume_diff is not None and prev_minmax is not None:
-        imp = importance_mod.classify_time_varying_importance(
-            mm.data, prev_minmax, volume_diff, scene.tf.positions,
-            scene.tf.colors, w)
-    else:
-        imp = importance_mod.classify_importance(
-            mm.data, scene.tf.positions, scene.tf.colors, w)
+    with telemetry.span("importance.classify"):
+        if volume_diff is not None and prev_minmax is not None:
+            imp = importance_mod.classify_time_varying_importance(
+                mm.data, prev_minmax, volume_diff, scene.tf.positions,
+                scene.tf.colors, w)
+        else:
+            imp = importance_mod.classify_importance(
+                mm.data, scene.tf.positions, scene.tf.colors, w)
     if screen_space_weight > 0.0:
         vis = screen_importance.cell_visibility_from_camera(
             mm, scene.tf, scene.camera)
@@ -429,6 +449,7 @@ def build_importance_grid(scene: Scene, config: PipelineConfig,
     return dataclasses.replace(mm, data=imp)
 
 
+@telemetry.spanned("importance.tf_change_grid")
 def build_tf_change_importance_grid(scene: Scene, config: PipelineConfig,
                                     prev_tf_positions,
                                     prev_tf_colors) -> UniformGrid3D:
@@ -438,20 +459,29 @@ def build_tf_change_importance_grid(scene: Scene, config: PipelineConfig,
     mm = minmax.volume_min_max(scene.volume, config.recompute.grid_cell_size)
 
     def host(t):
-        return t.detach().cpu().numpy() if torch.is_tensor(t) else t
+        if not torch.is_tensor(t):
+            return t
+        return telemetry.wait("importance.tf_points", torch.Tensor.cpu,
+                              t.detach()).numpy()
 
-    dpos, dcol = importance_mod.tf_difference_points(
-        host(prev_tf_positions), host(prev_tf_colors),
-        host(scene.tf.positions), host(scene.tf.colors))
-    imp = importance_mod.classify_importance(
-        mm.data, torch.from_numpy(dpos).to(scene.device),
-        torch.from_numpy(dcol).to(scene.device), weights=None,
-        incremental=True)
+    def upload(a):
+        return telemetry.wait("importance.tf_difference", torch.Tensor.to,
+                              torch.from_numpy(a), scene.device)
+
+    with telemetry.span("importance.tf_difference"):
+        dpos, dcol = importance_mod.tf_difference_points(
+            host(prev_tf_positions), host(prev_tf_colors),
+            host(scene.tf.positions), host(scene.tf.colors))
+    pos, col = upload(dpos), upload(dcol)
+    with telemetry.span("importance.classify"):
+        imp = importance_mod.classify_importance(
+            mm.data, pos, col, weights=None, incremental=True)
     return dataclasses.replace(mm, data=imp)
 
 
 # --- rendering and top-level dispatch -------------------------------------
 
+@telemetry.spanned("pipeline.render_state")
 def render_state(scene: Scene, state: PhotonMapState,
                  config: PipelineConfig) -> Tensor:
     """Composite the progressive light volume into an (H, W, 4) image with
@@ -469,6 +499,7 @@ def render_state(scene: Scene, state: PhotonMapState,
     raise ValueError(f"unknown render method {config.render.method!r}")
 
 
+@telemetry.spanned("pipeline.step")
 def step(scene: Scene, state: PhotonMapState, config: PipelineConfig,
          flags: DirtyFlags,
          importance_grid: UniformGrid3D | None = None) -> PhotonMapState:

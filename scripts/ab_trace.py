@@ -21,7 +21,8 @@ the two forms.
 For each it times, after one warm-up, the trace kernel's device time
 (``chip_smoke.device_ms`` under ``RECORDS["trace"]``, or its twin's, the
 mean over ``--reps`` calls of a ``torch.profiler`` window, ``--windows``
-windows; ``tf_global``, the form the last call launched),
+windows, with the kernels' counters off; ``tf_global``, the form the
+last call launched),
 the grids' pre-pass where the checkout has one (``RECORDS["grids"]``),
 and the whole ``trace_photons`` call (``chip_smoke.cuda_ms``, CUDA
 events). With ``--variants`` (a checkout with ``LaunchShape``) it also

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.kernels import splat_product as sp
 
 FLT_MAX = np.float32(3.4028235e38)
@@ -229,6 +230,6 @@ def test_kernel_wrappers_refuse_cpu_tensors(fn):
             sp.bin_deposits(pos, (8, 8, 8))
         else:
             getattr(sp, f"splat_product_{fn}")(pos, pw, 0.1, (8, 8, 8))
-    assert sp.splat_product_direct.launches == 0
-    assert sp.splat_product_tiled.launches == 0
-    assert sp.bin_deposits.launches == 0
+    assert telemetry.launches("splat_product_direct") == 0
+    assert telemetry.launches("splat_product_tiled") == 0
+    assert telemetry.launches("bin_deposits") == 0

@@ -193,8 +193,8 @@ def test_port_needs_no_jax():
         import torch
         import cpm_tpu_torch
         import chip_smoke
+        from cpm_tpu_torch.core import telemetry
         from cpm_tpu_torch.pipeline import timevarying
-        from cpm_tpu_torch.kernels import splat_product
 
         def loaded():
             return [m for m in sys.modules if m.split(".")[0] in blocked
@@ -331,7 +331,6 @@ def test_port_needs_no_jax():
         out = demo.render_sphere("cpu", vol_dim=16, photons_side=16,
                                  width=16)
         assert float(out["image"][..., 3].max()) > 0.0
-        from cpm_tpu_torch.kernels import woodcock_trace
         from cpm_tpu_torch.pipeline import packed
         frame, img = packed.interactive_frame(
             scene, packed.pack_state(state), scene.camera, grid, config,
@@ -341,11 +340,11 @@ def test_port_needs_no_jax():
         assert bool(torch.isfinite(img).all())
         assert packed.unpack_state(frame).recompute_phase == (
             state.recompute_phase + 1)
-        assert woodcock_trace.trace_woodcock_cuda.launches == 0
-        assert splat_product.splat_product_grad_cuda.launches == 0
-        assert splat_product.splat_product_direct.launches == 0
-        assert splat_product.splat_product_tiled.launches == 0
-        assert splat_product.bin_deposits.launches == 0
+        assert telemetry.launches("trace_woodcock_cuda") == 0
+        assert telemetry.launches("splat_product_grad_cuda") == 0
+        assert telemetry.launches("splat_product_direct") == 0
+        assert telemetry.launches("splat_product_tiled") == 0
+        assert telemetry.launches("bin_deposits") == 0
         assert not loaded(), loaded()
         for name in blocked:
             try:

@@ -17,6 +17,7 @@ from cpm_tpu.core import types as jtypes
 from cpm_tpu.oracle.reference import splat_oracle
 from cpm_tpu.ops import splat as jsplat
 from cpm_tpu.pallas.splat_mxu import splat_product_pallas
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.core import types as ttypes
 from cpm_tpu_torch.kernels import splat_product as sp
 from cpm_tpu_torch.ops import splat as tsplat
@@ -131,11 +132,12 @@ def test_default_method_follows_the_tensors_device():
 def test_wrapper_takes_cpu_tensors_to_the_plain_version():
     pos, pw = _deposits(200, seed=3)
     tpos, tpw = torch.from_numpy(pos), torch.from_numpy(pw)
-    counted = (sp.splat_product_direct, sp.splat_product_tiled,
-               sp.bin_deposits)
-    before = [fn.launches for fn in counted]
+    counted = ("splat_product_direct", "splat_product_tiled",
+               "bin_deposits")
+    before = [telemetry.launches(name) for name in counted]
     got = sp.splat_product(tpos, tpw, 0.07, (10, 12, 14))
-    assert [fn.launches for fn in counted] == before  # no kernel on the CPU
+    # No kernel on the CPU.
+    assert [telemetry.launches(name) for name in counted] == before
     torch.testing.assert_close(
         got, sp.splat_product_torch(tpos, tpw, 0.07, (10, 12, 14)),
         rtol=0, atol=0)
@@ -280,10 +282,10 @@ def test_backward_kernel_matches_plain_on_the_card(cuda_device, source):
         tpos, _ = tsplat.product_deposits(state.photons)
         r = state.photons.radius_rel
     g = _grid_grad(dim, seed=15).to(cuda_device)
-    before = sp.splat_product_grad_cuda.launches
+    before = telemetry.launches("splat_product_grad_cuda")
     got = sp.splat_product_grad(tpos, g, r, dim)
     torch.cuda.synchronize()
-    assert sp.splat_product_grad_cuda.launches == before + 1
+    assert telemetry.launches("splat_product_grad_cuda") == before + 1
     assert tpos.shape[0] == 262144
     ref = sp.splat_product_grad_torch(tpos, g, r, dim)
     torch.testing.assert_close(got, ref, rtol=1e-4,
@@ -305,13 +307,13 @@ def test_kernel_matches_plain_on_the_card(cuda_device, design):
     # The wrapper that launches counts; the chooser launches nothing itself.
     if design == "chosen":
         design = sp.choose_design(tpos.shape[0], 0.0153866, dim)
-    counter = {"direct": sp.splat_product_direct,
-               "tiled": sp.splat_product_tiled}[design]
-    before = counter.launches
+    counter = {"direct": "splat_product_direct",
+               "tiled": "splat_product_tiled"}[design]
+    before = telemetry.launches(counter)
     got = fn(tpos, tpw, 0.0153866, dim)
     ref = sp.splat_product_torch(tpos, tpw, 0.0153866, dim)
     torch.cuda.synchronize()
-    assert counter.launches == before + 1
+    assert telemetry.launches(counter) == before + 1
     torch.testing.assert_close(got, ref, rtol=1e-4,
                                atol=1e-6 * float(ref.abs().max()))
 

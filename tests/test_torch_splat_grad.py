@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.kernels import splat_product as sp
 
 FLT_MAX = np.float32(3.4028235e38)
@@ -257,9 +258,9 @@ def test_backward_wrapper_launches_nothing_on_the_cpu():
     pos, r, dim = _list("dead interleaved")
     tpos = torch.from_numpy(pos)
     g = _grid_grad(dim, seed=3)
-    before = sp.splat_product_grad_cuda.launches
+    before = telemetry.launches("splat_product_grad_cuda")
     got = sp.splat_product_grad(tpos, g, r, dim)
-    assert sp.splat_product_grad_cuda.launches == before
+    assert telemetry.launches("splat_product_grad_cuda") == before
     torch.testing.assert_close(
         got, sp.splat_product_grad_torch(tpos, g, r, dim), rtol=0, atol=0,
         equal_nan=True)
@@ -279,11 +280,11 @@ def cuda_device():
 def _on_card(tpos, g, r, dim):
     """The kernel through the wrapper, twice: (result, second result); the
     launch counter goes up by one a call."""
-    before = sp.splat_product_grad_cuda.launches
+    before = telemetry.launches("splat_product_grad_cuda")
     got = sp.splat_product_grad(tpos, g, r, dim)
     again = sp.splat_product_grad(tpos, g, r, dim)
     torch.cuda.synchronize()
-    assert sp.splat_product_grad_cuda.launches == before + 2
+    assert telemetry.launches("splat_product_grad_cuda") == before + 2
     return got, again
 
 
@@ -353,10 +354,10 @@ def test_backward_kernel_on_long_axes(cuda_device, dim):
     r = 0.1
     assert sp.kernel_width(r, dim) == 0
     if 4 * sum(dim) > sp.SMEM_BYTES:
-        before = sp.splat_product_grad_cuda.launches
+        before = telemetry.launches("splat_product_grad_cuda")
         with pytest.raises(ValueError, match="shared memory"):
             sp.splat_product_grad(tpos, g, r, dim)
-        assert sp.splat_product_grad_cuda.launches == before
+        assert telemetry.launches("splat_product_grad_cuda") == before
         return
     assert 4 * sum(dim) > 48 * 1024
     got, again = _on_card(tpos, g, r, dim)

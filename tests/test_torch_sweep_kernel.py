@@ -59,6 +59,7 @@ import pytest
 import torch
 
 from cpm_tpu_torch.core import camera as tcamera
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.core import types as ttypes
 from cpm_tpu_torch.core.config import RenderConfig
 from cpm_tpu_torch.io import synthetic
@@ -179,15 +180,15 @@ def _close(got, want, rtol, atol_rel, what):
 
 def test_auto_on_cpu_runs_the_plain_loop_and_launches_nothing():
     vol_p, light_p, tf, sched, u, v = _scan_inputs()
-    before = (ss.sweep_scan_forward.launches,
-              ss.sweep_scan_backward.launches)
+    before = (telemetry.launches("sweep_scan_forward"),
+              telemetry.launches("sweep_scan_backward"))
     got = tsw._scan_planes(vol_p, light_p, tf, sched, u, v, 0.05)
     c = tsw.scan_constants(vol_p, light_p, sched, u, v)
     want = tsw._scan_planes_torch(vol_p, light_p, tf, c, u, v, 0.05)
     assert torch.equal(got, want)
     assert float(got[..., 3].max()) > 0.05
-    assert (ss.sweep_scan_forward.launches,
-            ss.sweep_scan_backward.launches) == before
+    assert (telemetry.launches("sweep_scan_forward"),
+            telemetry.launches("sweep_scan_backward")) == before
 
 
 @pytest.mark.parametrize("method", ["cuda", "triton", "kernel", ""])
@@ -201,7 +202,7 @@ def test_cuda_on_cpu_tensors_and_unknown_methods_raise(method):
 def test_the_wrapper_refuses_cpu_tensors():
     vol_p, light_p, tf, sched, u, v = _scan_inputs()
     c = tsw.scan_constants(vol_p, light_p, sched, u, v)
-    before = ss.sweep_scan_forward.launches
+    before = telemetry.launches("sweep_scan_forward")
     with pytest.raises(ValueError, match="CUDA"):
         ss.sweep_scan(vol_p, light_p, tf.positions, tf.colors, c, u, v, 0.05)
     with pytest.raises(ValueError, match="CUDA"):
@@ -211,7 +212,7 @@ def test_the_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ss.sweep_scan_backward(vol_p, light_p, tf.positions, tf.colors, c, u,
                                v, 0.05, out, out)
-    assert ss.sweep_scan_forward.launches == before
+    assert telemetry.launches("sweep_scan_forward") == before
 
 
 def test_the_wrappers_arguments_mirror_the_sources_struct():
@@ -756,14 +757,14 @@ def test_prepare_planes_on_cpu_is_the_plain_version_and_launches_nothing():
     CPU tensors and launches nothing."""
     vol_p, light_p, tf, sched, u, v = _scan_inputs()
     c = tsw.scan_constants(vol_p, light_p, sched, u, v)
-    before = ss.sweep_planes.launches
+    before = telemetry.launches("sweep_planes")
     part = ss._prepare_planes_torch(vol_p, light_p, c, u, v, 5, 12)
     whole = ss._prepare_planes_torch(vol_p, light_p, c, u, v, 0, 32)
     for got, want in zip(part, whole):
         assert torch.equal(got, want[5:12])
     with pytest.raises(ValueError, match="CUDA tensors"):
         ss._forward(vol_p, light_p, tf.positions, tf.colors, c, u, v, 0.05)
-    assert ss.sweep_planes.launches == before
+    assert telemetry.launches("sweep_planes") == before
 
 
 def test_the_scratch_holds_each_field_where_the_kernels_are_pointed():
@@ -833,13 +834,13 @@ CARD_KW = {"default": {}, "eye inside": dict(eye=(0.5, 0.55, 0.3),
 def test_forward_kernel_matches_plain_on_the_card(card, case):
     vol_p, light_p, tf, sched, u, v = _scan_inputs(device=card,
                                                    **CARD_KW[case])
-    before = ss.sweep_scan_forward.launches
+    before = telemetry.launches("sweep_scan_forward")
     got = tsw._scan_planes(vol_p, light_p, tf, sched, u, v, 0.05)
     torch.cuda.synchronize()
-    assert ss.sweep_scan_forward.launches == before + 1
+    assert telemetry.launches("sweep_scan_forward") == before + 1
     want = tsw._scan_planes(vol_p, light_p, tf, sched, u, v, 0.05,
                             method="torch")
-    assert ss.sweep_scan_forward.launches == before + 1
+    assert telemetry.launches("sweep_scan_forward") == before + 1
     _close(got, want, CARD_RTOL, CARD_ATOL_REL, case)
 
 
@@ -886,8 +887,8 @@ def test_backward_kernel_matches_plain_on_the_card(card, case):
 
 def _grad_launches(before=(0, 0, 0)) -> tuple:
     """The pre-pass, gradient-march and fold launches since ``before``."""
-    now = (ss.sweep_planes.launches, ss.sweep_scan_backward.launches,
-           ss.sweep_fold.launches)
+    now = tuple(telemetry.launches(name) for name in (
+        "sweep_planes", "sweep_scan_backward", "sweep_fold"))
     return tuple(n - b for n, b in zip(now, before))
 
 
@@ -956,14 +957,15 @@ def test_forward_in_chunks_equals_one_chunk_on_the_card(card, case,
     c = tsw.scan_constants(vol_p, light_p, sched, u, v)
     args = (vol_p, light_p, tf.positions, tf.colors, c, u, v, 0.05)
     one = ss.sweep_scan_forward(*args)
-    before = (ss.sweep_planes.launches, ss.sweep_scan_forward.launches)
+    before = (telemetry.launches("sweep_planes"),
+              telemetry.launches("sweep_scan_forward"))
     per = ss.plane_bytes(*vol_p.shape[1:], *light_p.shape[1:3], u.shape[0],
                          v.shape[0])
     monkeypatch.setattr(ss, "PLANE_BUDGET", 10 * per)
     chunked = ss.sweep_scan_forward(*args)
     torch.cuda.synchronize()
-    assert (ss.sweep_planes.launches - before[0],
-            ss.sweep_scan_forward.launches - before[1]) == (4, 4)
+    assert (telemetry.launches("sweep_planes") - before[0],
+            telemetry.launches("sweep_scan_forward") - before[1]) == (4, 4)
     assert torch.equal(chunked, one)
     assert float(one[..., 3].max()) > 0.05
 
@@ -987,11 +989,11 @@ def test_plane_prepass_kernel_equals_its_plain_version_on_the_card(
     for budget, chunks, last in ((ss.PLANE_BUDGET, 1, (0, n)),
                                  (13 * per, 3, (26, n))):
         monkeypatch.setattr(ss, "PLANE_BUDGET", budget)
-        before = ss.sweep_planes.launches
+        before = telemetry.launches("sweep_planes")
         _, scratch = ss._forward(vol_p, light_p, tf.positions, tf.colors, c,
                                  u, v, 0.05)
         torch.cuda.synchronize()
-        assert ss.sweep_planes.launches == before + chunks
+        assert telemetry.launches("sweep_planes") == before + chunks
         got, span = ss._filled(scratch)
         assert span == last
         want = ss._prepare_planes_torch(vol_p, light_p, c, u, v, *last)

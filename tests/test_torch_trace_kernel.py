@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.core import types as ttypes
 from cpm_tpu_torch.core.config import TracerConfig
 from cpm_tpu_torch.core.lights import Light
@@ -82,14 +83,14 @@ def test_auto_runs_the_wavefront_on_cpu_tensors(monkeypatch):
     wavefront = tracer._trace_wavefront
     monkeypatch.setattr(tracer, "_trace_wavefront",
                         lambda *a: ran.append(1) or wavefront(*a))
-    launches = wt.trace_woodcock_cuda.launches
+    launches = telemetry.launches("trace_woodcock_cuda")
     got = tracer.trace_photons(vol, tf, tfs, ls, (0, 3), cfg)
     chunked = tracer.trace_photons_chunked(vol, tf, tfs, ls, (0, 3), cfg,
                                            chunk=50)
     want = tracer.trace_photons(vol, tf, tfs, ls, (0, 3), cfg,
                                 method="wavefront")
     assert len(ran) == 1 + 3 + 1
-    assert wt.trace_woodcock_cuda.launches == launches
+    assert telemetry.launches("trace_woodcock_cuda") == launches
     for f in ("positions", "powers", "directions", "exit_power",
               "exit_direction"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
@@ -582,12 +583,12 @@ def test_kernel_matches_the_wavefront_on_the_card(card_frame, case,
         return tracer.trace_photons(*args, lane_ids=ids, method=method,
                                     **opts)
 
-    before = wt.trace_woodcock_cuda.launches
+    before = telemetry.launches("trace_woodcock_cuda")
     got = run("cuda")
     torch.cuda.synchronize()
-    launches = wt.trace_woodcock_cuda.launches - before
+    launches = telemetry.launches("trace_woodcock_cuda") - before
     want = run("wavefront")
-    assert wt.trace_woodcock_cuda.launches - before == launches
+    assert telemetry.launches("trace_woodcock_cuda") - before == launches
     assert launches == (-(-samples.n // cfg.trace_chunk)
                         if cfg.trace_chunk else 1)
     assert wt.trace_woodcock_cuda.tf_global == (case in GLOBAL_TF)
@@ -619,12 +620,12 @@ def test_grids_match_their_plain_version_on_the_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     _, vol, tf, cfg = grid_case(case, "cuda")
-    before = wt.trace_grids_cuda.launches
+    before = telemetry.launches("trace_grids_cuda")
     got = tracer.majorant_grids(vol, tf, cfg)
     torch.cuda.synchronize()
-    assert wt.trace_grids_cuda.launches == before + 1
+    assert telemetry.launches("trace_grids_cuda") == before + 1
     want = tracer.majorant_grids_torch(vol, tf, cfg)
-    assert wt.trace_grids_cuda.launches == before + 1
+    assert telemetry.launches("trace_grids_cuda") == before + 1
     for g, w, name in zip(got[:3], want[:3], ("maj", "dist", "maj_global")):
         assert g.shape == w.shape and g.device == w.device, name
         g, w = g.contiguous(), w.contiguous()
