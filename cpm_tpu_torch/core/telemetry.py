@@ -16,10 +16,11 @@ other switch.
   it; while recording, it opens a span ``wait.<site>`` and counts the
   site.
 - **Counters**: host-side named integers (each host wait's site, while
-  recording); the kernels' counters (:func:`device_counters`), one int64
-  buffer a device that kernels add to without a host wait and that only
-  :func:`snapshot` reads; and the kernel wrappers' launches
-  (:func:`launched`, :func:`launches`), which are counted always.
+  recording; what :func:`count` counts, always); the kernels' counters
+  (:func:`device_counters`), one int64 buffer a device that kernels add
+  to without a host wait and that only :func:`snapshot` reads; and the
+  kernel wrappers' launches (:func:`launched`, :func:`launches`), which
+  are counted always.
 
 :func:`snapshot` returns what was recorded and :func:`reset` clears it.
 Nothing is written to a file.
@@ -106,14 +107,24 @@ def wait(site: str, fn, *args, **kwargs):
         return fn(*args, **kwargs)
 
 
-def launched(name: str) -> None:
-    """Counts one launch of the kernel wrapper ``name`` (always)."""
-    _launches[name] += 1
+def count(name: str) -> None:
+    """Adds one to the host counter ``name`` (always)."""
+    _counters[name] += 1
+
+
+def launched(name: str, n: int = 1) -> None:
+    """Counts ``n`` launches of the kernel wrapper ``name`` (always)."""
+    _launches[name] += n
 
 
 def launches(name: str) -> int:
     """The launches counted of the kernel wrapper ``name``."""
     return _launches[name]
+
+
+def launch_counts() -> dict:
+    """The launches counted of every kernel wrapper, by name."""
+    return dict(_launches)
 
 
 def device_counters(device):

@@ -21,10 +21,16 @@ loop; the transfer function may have any number of points. Both forms read
 :func:`scan_constants`; ``method="auto"`` takes the kernels for CUDA
 tensors and the plain loop (:func:`_scan_planes_torch`, whose backward's
 plain version is :func:`_scan_planes_grad_torch`) for CPU tensors.
+
+Nothing in a render reads the card back: the camera's host copies decide
+the marching axis and the sweeps. So on the card a render that needs no
+gradient replays a CUDA graph of its whole chain (:func:`sweep_render`),
+one launch where it issued some 250 small operators one at a time.
 """
 
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -104,7 +110,7 @@ def _plane_schedule(camera: Camera, axis: int, sign: int, n_planes: int,
     za = (ks + 0.5) / S if sign > 0 else (S - 0.5 - ks) / S
     in_front = (za - o_a) * float(sign) > 1e-6
     k0 = torch.argmax(in_front.to(torch.int32))
-    z_base = telemetry.wait("render.z_base", za.__getitem__, k0)
+    z_base = za.index_select(0, k0.view(1)).view(())
     depth0 = (z_base - o_a) * float(sign)
     w_planes = (za - o_a) / torch.where(torch.abs(z_base - o_a) < 1e-8,
                                         1e-8, z_base - o_a)
@@ -661,47 +667,55 @@ class SweepPlan(NamedTuple):
     scans: list
 
 
-@telemetry.spanned("render.plan")
-def sweep_plan(volume: Volume, light_volume: Tensor, camera: Camera,
-               config: RenderConfig) -> SweepPlan:
-    """What :func:`sweep_render` scans for ``config``:
-    ``config.sampling_rate`` planes per slab of the marching axis (at
+class _Shape(NamedTuple):
+    """What the host decides of a render: the marching axis, the sweeps'
+    signs, the planes and the intermediate image's columns and rows."""
+
+    axis: int
+    signs: tuple
+    n_planes: int
+    n_u: int
+    n_v: int
+
+
+def _sweep_shape(data_shape, camera: Camera, config: RenderConfig) -> _Shape:
+    """``config.sampling_rate`` planes per slab of the marching axis (at
     least 2) and an intermediate image of ``config.inter_scale`` times the
-    screen, rounded up to a multiple of 128."""
+    screen, rounded up to a multiple of 128; two sweeps where the eye lies
+    inside the volume's slab range (from the camera's host copies)."""
     axis, sign = principal_axis(camera)
-    na = volume.data.shape[2 - axis]
-    n_planes = max(2, int(na * config.sampling_rate))
-    U = _round_up(int(config.width * config.inter_scale), 128)
-    V = _round_up(int(config.height * config.inter_scale), 128)
+    n_planes = max(2, int(data_shape[2 - axis] * config.sampling_rate))
     eye_a = float(camera.host("eye")[axis])
     z_first = 0.5 / n_planes if sign > 0 else 1.0 - 0.5 / n_planes
     inside = (z_first - eye_a) * sign <= 1e-6
-    vol_p, light_p = permute_volumes(volume.data, light_volume, axis)
+    return _Shape(axis, (1, -1) if inside else (sign,), n_planes,
+                  _round_up(int(config.width * config.inter_scale), 128),
+                  _round_up(int(config.height * config.inter_scale), 128))
+
+
+@telemetry.spanned("render.plan")
+def _plan(vol_p: Tensor, light_p: Tensor, camera: Camera,
+          config: RenderConfig, shape: _Shape) -> SweepPlan:
+    """Each sweep's schedule and base grid over the permuted volumes."""
     scans = []
-    for s in ((1, -1) if inside else (sign,)):
-        sched = _plane_schedule(camera, axis, s, n_planes, config.width,
-                                config.height)
-        scans.append((sched, *base_grid(sched, U, V)))
-    return SweepPlan(axis, vol_p, light_p, scans)
+    for s in shape.signs:
+        sched = _plane_schedule(camera, shape.axis, s, shape.n_planes,
+                                config.width, config.height)
+        scans.append((sched, *base_grid(sched, shape.n_u, shape.n_v)))
+    return SweepPlan(shape.axis, vol_p, light_p, scans)
 
 
-@telemetry.spanned("render.sweep")
-def sweep_render(volume: Volume, tf: TransferFunction, light_volume: Tensor,
-                 camera: Camera, config: RenderConfig,
-                 return_intermediate: bool = False, method: str = "auto"):
-    """Render an (H, W, 4) RGBA image from the (D, H, W, 3) light volume
-    over the scans of :func:`sweep_plan`; an eye inside the slab range
-    sums its two sweeps' images, each of which masks the pixels whose rays
-    point the other way. ``method`` picks the plane scan's form
-    (:func:`_scan_planes`): "auto", "torch" or "cuda"."""
-    full_fp32_matmul()
-    plan = sweep_plan(volume, light_volume, camera, config)
-    if return_intermediate and len(plan.scans) > 1:
-        eye_a = float(camera.host("eye")[plan.axis])
-        raise ValueError(
-            f"sweep_render: eye (axis {plan.axis} coord {eye_a:.3f}) lies "
-            "inside the volume slab range; no single sweep intermediate "
-            "exists")
+def sweep_plan(volume: Volume, light_volume: Tensor, camera: Camera,
+               config: RenderConfig) -> SweepPlan:
+    """What :func:`sweep_render` scans for ``config`` (:func:`_sweep_shape`)."""
+    shape = _sweep_shape(volume.data.shape, camera, config)
+    return _plan(*permute_volumes(volume.data, light_volume, shape.axis),
+                 camera, config, shape)
+
+
+def _composite(plan: SweepPlan, tf: TransferFunction, config: RenderConfig,
+               return_intermediate: bool, method: str):
+    """Scan and warp each sweep of ``plan`` and sum their images."""
     img = None
     for sched, u, v in plan.scans:
         inter = _scan_planes(plan.vol_p, plan.light_p, tf, sched, u, v,
@@ -712,6 +726,158 @@ def sweep_render(volume: Volume, tf: TransferFunction, light_volume: Tensor,
         return img, inter, (sched.u_lo, sched.u_hi, sched.v_lo, sched.v_hi,
                             sched.za)
     return img
+
+
+# Renders on the card replay captured CUDA graphs of the whole chain above
+# (schedule, scan constants, the kernels, the warp). A graph is kept per
+# key (:func:`_graph_key`), at most RENDER_GRAPHS, the least recently used
+# evicted, each in its own memory pool. The value is None for a key that
+# has rendered once, eagerly (its warm-up), and is captured at its second.
+RENDER_GRAPHS = 8
+_graphs: collections.OrderedDict = collections.OrderedDict()
+
+
+class _Graph(NamedTuple):
+    """One captured render: its graph, the permutation of the volumes to
+    the marching axis, its static inputs (:func:`_sources`), its static
+    outputs and the kernel wrappers' launches it makes."""
+
+    graph: torch.cuda.CUDAGraph
+    perm: tuple
+    inputs: tuple
+    outputs: object
+    launches: dict
+
+
+def clear_render_graphs() -> None:
+    """Forget every captured render: each key's next render runs eagerly."""
+    _graphs.clear()
+
+
+def _graph_key(volume: Volume, tf: TransferFunction, light_volume: Tensor,
+               camera: Camera, config: RenderConfig, shape: _Shape,
+               return_intermediate: bool, method: str):
+    """Everything a captured render bakes in, or None where the render
+    runs eagerly: tensors off the card or on more than one device, the
+    plain loop, or an input that requires grad."""
+    inputs = (volume.data, light_volume, tf.positions, tf.colors, camera.eye,
+              camera.center, camera.up)
+    dev = volume.data.device
+    if (_scan_method(method, dev) != "cuda"
+            or any(t.device != dev or t.requires_grad for t in inputs)):
+        return None
+    return (dev, shape, tuple((tuple(t.shape), t.dtype) for t in inputs),
+            config.width, config.height, config.ambient, return_intermediate,
+            sweep_scan.PLANE_BUDGET)
+
+
+def _sources(volume: Volume, tf: TransferFunction, light_volume: Tensor,
+             camera: Camera, perm: tuple) -> tuple:
+    """What a captured render reads: the volume and the light volume
+    permuted to the marching axis (``perm``), the TF's positions and
+    colours, and the camera's eye, center, up and fov."""
+    return (volume.data.permute(perm), light_volume.permute(perm + (3,)),
+            tf.positions, tf.colors, camera.eye, camera.center, camera.up,
+            camera.fov())
+
+
+def _static(t: Tensor) -> Tensor:
+    """A fresh contiguous buffer holding ``t``."""
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+def _cloned(out):
+    if isinstance(out, Tensor):
+        return out.clone()
+    return tuple(_cloned(t) for t in out)
+
+
+@telemetry.spanned("render.capture")
+def _capture(volume: Volume, tf: TransferFunction, light_volume: Tensor,
+             camera: Camera, config: RenderConfig, shape: _Shape,
+             return_intermediate: bool, method: str) -> _Graph:
+    """Capture the render's chain on static copies of its inputs (which
+    hold this render's), then replay it once."""
+    _, _, perm = _axis_perm(shape.axis)
+    inputs = tuple(_static(t) for t in _sources(volume, tf, light_volume,
+                                                  camera, perm))
+    vol_p, light_p, pos, col, eye, center, up, fov = inputs
+    s_tf = TransferFunction(positions=pos, colors=col, lut=tf.lut)
+    s_cam = Camera.of(eye, center, up, fov, camera.fov_y, {
+        name: camera.host(name) for name in ("eye", "center", "up")})
+    graph = torch.cuda.CUDAGraph()
+    before = telemetry.launch_counts()
+    with torch.cuda.graph(graph):
+        out = _composite(_plan(vol_p, light_p, s_cam, config, shape), s_tf,
+                         config, return_intermediate, method)
+    after = telemetry.launch_counts()
+    graph.replay()
+    return _Graph(graph, perm, inputs, out,
+                  {k: n - before.get(k, 0) for k, n in after.items()
+                   if n != before.get(k, 0)})
+
+
+@telemetry.spanned("render.replay")
+def _replay(g: _Graph, volume: Volume, tf: TransferFunction,
+            light_volume: Tensor, camera: Camera) -> None:
+    """This render's inputs into the graph's static buffers (device to
+    device), then the graph; counts the launches its capture counted."""
+    for dst, src in zip(g.inputs, _sources(volume, tf, light_volume, camera,
+                                           g.perm)):
+        dst.copy_(src)
+    g.graph.replay()
+    for name, n in g.launches.items():
+        telemetry.launched(name, n)
+
+
+@telemetry.spanned("render.sweep")
+def sweep_render(volume: Volume, tf: TransferFunction, light_volume: Tensor,
+                 camera: Camera, config: RenderConfig,
+                 return_intermediate: bool = False, method: str = "auto"):
+    """Render an (H, W, 4) RGBA image from the (D, H, W, 3) light volume
+    over the scans of :func:`sweep_plan`; an eye inside the slab range
+    sums its two sweeps' images, each of which masks the pixels whose rays
+    point the other way. ``method`` picks the plane scan's form
+    (:func:`_scan_planes`): "auto", "torch" or "cuda".
+
+    On the card, where no input requires grad, the first render of a key
+    (:func:`_graph_key`) runs eagerly, the second captures the chain as a
+    CUDA graph and every later one replays it on copies of its inputs; the
+    images are bit for bit the eager ones, and each call returns tensors of
+    its own. The host counters ``render.graph_eager`` (every render on the
+    card run eagerly), ``render.graph_captures`` and
+    ``render.graph_replays`` count the three."""
+    full_fp32_matmul()
+    shape = _sweep_shape(volume.data.shape, camera, config)
+    if return_intermediate and len(shape.signs) > 1:
+        eye_a = float(camera.host("eye")[shape.axis])
+        raise ValueError(
+            f"sweep_render: eye (axis {shape.axis} coord {eye_a:.3f}) lies "
+            "inside the volume slab range; no single sweep intermediate "
+            "exists")
+    key = _graph_key(volume, tf, light_volume, camera, config, shape,
+                     return_intermediate, method)
+    if key is None or key not in _graphs:
+        plan = _plan(*permute_volumes(volume.data, light_volume, shape.axis),
+                     camera, config, shape)
+        out = _composite(plan, tf, config, return_intermediate, method)
+        if volume.data.device.type == "cuda":
+            telemetry.count("render.graph_eager")
+        if key is not None:
+            _graphs[key] = None
+            if len(_graphs) > RENDER_GRAPHS:
+                _graphs.popitem(last=False)
+        return out
+    _graphs.move_to_end(key)
+    g = _graphs[key]
+    if g is None:
+        g = _graphs[key] = _capture(volume, tf, light_volume, camera, config,
+                                    shape, return_intermediate, method)
+        telemetry.count("render.graph_captures")
+    else:
+        _replay(g, volume, tf, light_volume, camera)
+        telemetry.count("render.graph_replays")
+    return _cloned(g.outputs)
 
 
 def march_zplanes_oracle(volume: Volume, tf: TransferFunction,

@@ -142,15 +142,17 @@ def test_spans_nest_as_the_pipeline_calls_its_stages(traced):
             ("trace.outputs", "trace.photons"),
             ("render.sweep", "pipeline.render_state"),
             ("render.plan", "render.sweep"),
-            ("render.principal_axis", "render.plan"),
-            ("render.permute", "render.plan"),
+            ("render.principal_axis", "render.sweep"),
+            ("render.permute", "render.sweep"),
             ("render.schedule", "render.plan"),
             ("render.scan", "render.sweep"),
             ("render.warp", "render.sweep"),
-            ("wait.render.z_base", "render.schedule"),
             ("wait.step.iteration", "pipeline.progressive_step")):
         assert name in names, name
         assert {parent(i) for i in names[name]} == {want}, name
+    # The render reads nothing back from the card.
+    assert not {"wait.render.z_base", "wait.camera.host",
+                "wait.camera.fov"} & set(names)
     assert {parent(i) for i in names["trace.photons"]} == {
         "pipeline.retrace", "pipeline.progressive_step"}
     assert {parent(i) for i in names["splat.deposits"]} == {
