@@ -16,7 +16,8 @@ other switch.
   it; while recording, it opens a span ``wait.<site>`` and counts the
   site.
 - **Counters**: host-side named integers (each host wait's site, while
-  recording; what :func:`count` counts, always); the kernels' counters
+  recording; what :func:`count` and :func:`count_change` count, always);
+  the kernels' counters
   (:func:`device_counters`), one int64 buffer a device that kernels add
   to without a host wait and that only :func:`snapshot` reads; and the
   kernel wrappers' launches (:func:`launched`, :func:`launches`), which
@@ -47,6 +48,7 @@ _spans: list = []
 _open: list = []  # the entries of the spans open now, outermost first
 _counters: collections.Counter = collections.Counter()
 _launches: collections.Counter = collections.Counter()
+_last: dict = {}  # counter name -> the value count_change was last given
 _device: dict = {}  # device name -> (len(DEVICE_COUNTERS),) int64 tensor
 
 
@@ -112,6 +114,14 @@ def count(name: str) -> None:
     _counters[name] += 1
 
 
+def count_change(name: str, value) -> None:
+    """Adds one to the host counter ``name`` (always) when ``value``
+    differs from the value last given under ``name`` (or none was)."""
+    if name not in _last or _last[name] != value:
+        _counters[name] += 1
+        _last[name] = value
+
+
 def launched(name: str, n: int = 1) -> None:
     """Counts ``n`` launches of the kernel wrapper ``name`` (always)."""
     _launches[name] += n
@@ -158,12 +168,13 @@ def snapshot() -> dict:
 
 
 def reset() -> None:
-    """Clears the spans, the counters and the launches. The kernels'
-    counters are zeroed where they are (no buffer is made again inside a
-    later profiler window)."""
+    """Clears the spans, the counters (and the values :func:`count_change`
+    last saw) and the launches. The kernels' counters are zeroed where they
+    are (no buffer is made again inside a later profiler window)."""
     _spans.clear()
     _open.clear()
     _counters.clear()
+    _last.clear()
     _launches.clear()
     for buf in _device.values():
         buf.zero_()

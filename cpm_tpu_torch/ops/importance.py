@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.core.types import interp
 
 Tensor = torch.Tensor
@@ -51,12 +52,14 @@ def rgb2lab(rgb: Tensor) -> Tensor:
     0.008856 cube-root split."""
     c = torch.where(rgb > 0.04045, ((rgb + 0.055) / 1.055) ** 2.4,
                     rgb / 12.92)
-    m = torch.tensor(_RGB_TO_XYZ, dtype=torch.float32, device=rgb.device)
+    m = telemetry.wait("importance.rgb_to_xyz", torch.tensor, _RGB_TO_XYZ,
+                       dtype=torch.float32, device=rgb.device)
     # An elementwise product and a sum of three terms: a matrix product
     # here could run in TF32 on the card.
     xyz = (c[..., None, :] * m).sum(-1)
-    r = xyz / torch.tensor(_WHITE_D65, dtype=torch.float32,
-                           device=rgb.device)
+    r = xyz / telemetry.wait("importance.white_d65", torch.tensor,
+                             _WHITE_D65, dtype=torch.float32,
+                             device=rgb.device)
     cbrt = torch.sign(r) * torch.abs(r) ** (1.0 / 3.0)
     f = torch.where(r > 0.008856, cbrt, (903.3 * r + 16.0) / 116.0)
     lum = 116.0 * f[..., 1] - 16.0

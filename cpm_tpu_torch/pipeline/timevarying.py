@@ -6,6 +6,14 @@ every step) runs once, batched over the steps, in
 :meth:`VolumeSequence.prepare`. A time step is one :func:`advance_time`:
 interpolate the volume, build the time-varying importance grid, and run
 the correlated update (or a full retrace).
+
+Playback is traced by the recorder (``core/telemetry.py``): the spans
+``playback.prepare``, ``playback.advance_time`` and, inside it,
+``playback.mix`` and ``playback.importance``; its host waits go through
+``telemetry.wait`` (sites ``playback.*``); the host counters
+``playback.frames`` (one an :func:`advance_time`) and
+``playback.new_step`` (the frames whose floor step differs from the
+previous frame's) count always.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from cpm_tpu_torch.core import telemetry
 from cpm_tpu_torch.core.config import PipelineConfig
 from cpm_tpu_torch.core.device import resolve
 from cpm_tpu_torch.core.scene import Scene
@@ -44,12 +53,14 @@ class VolumeSequence:
         return self.volumes.shape[0]
 
     @classmethod
+    @telemetry.spanned("playback.prepare")
     def prepare(cls, volumes, cell_size: int = 8, data_range: float = 1.0,
                 device=None) -> "VolumeSequence":
         """Run the sequence analysis, on the card unless ``device`` names
         another."""
-        volumes = torch.as_tensor(volumes, dtype=torch.float32,
-                                  device=resolve(device)).contiguous()
+        volumes = telemetry.wait(
+            "playback.sequence", torch.as_tensor, volumes,
+            dtype=torch.float32, device=resolve(device)).contiguous()
         return cls(volumes=volumes,
                    minmax=minmax.sequence_min_max(volumes, cell_size),
                    diff=diffanalysis.volume_difference_grids(
@@ -57,6 +68,12 @@ class VolumeSequence:
                    cell_size=cell_size)
 
 
+def floor_step(time: float, n_steps: int) -> int:
+    """The sequence step at or below fractional ``time`` (cyclic)."""
+    return math.floor(np.float32(time)) % n_steps
+
+
+@telemetry.spanned("playback.importance")
 def time_step_importance(seq_minmax: Tensor, seq_diff: Tensor, time: float,
                          tf_positions: Tensor, tf_colors: Tensor,
                          volume_dim: tuple, cell_size: int,
@@ -65,7 +82,7 @@ def time_step_importance(seq_minmax: Tensor, seq_diff: Tensor, time: float,
     floor step's difference grid times the TF importance over the min/max
     envelope of the two bracketing steps."""
     t = seq_minmax.shape[0]
-    i0 = math.floor(np.float32(time)) % t
+    i0 = floor_step(time, t)
     i1 = (i0 + 1) % t
     imp = importance_mod.classify_time_varying_importance(
         seq_minmax[i0], seq_minmax[i1], seq_diff[i0], tf_positions,
@@ -74,9 +91,12 @@ def time_step_importance(seq_minmax: Tensor, seq_diff: Tensor, time: float,
     dev = imp.device
     return UniformGrid3D(
         data=imp, cell_dim=torch.full((3,), float(cell_size), device=dev),
-        volume_dim=torch.tensor([w, h, d], dtype=torch.float32, device=dev))
+        volume_dim=telemetry.wait("playback.volume_dim", torch.tensor,
+                                  [w, h, d], dtype=torch.float32,
+                                  device=dev))
 
 
+@telemetry.spanned("playback.advance_time")
 def advance_time(scene: Scene, state: PhotonMapState, seq: VolumeSequence,
                  time: float, config: PipelineConfig,
                  weights: importance_mod.ImportanceWeights | None = None,
@@ -87,10 +107,15 @@ def advance_time(scene: Scene, state: PhotonMapState, seq: VolumeSequence,
     ``correlated``, else with a full retrace.
 
     Returns (scene with the new volume, new state)."""
+    telemetry.count("playback.frames")
+    telemetry.count_change("playback.new_step",
+                           floor_step(time, seq.n_steps))
     if weights is None:
         weights = importance_mod.ImportanceWeights()
+    with telemetry.span("playback.mix"):
+        data = mixer.sequence_sample(seq.volumes, time)
     scene = dataclasses.replace(scene, volume=dataclasses.replace(
-        scene.volume, data=mixer.sequence_sample(seq.volumes, time)))
+        scene.volume, data=data))
     if not correlated:
         return scene, pstep.full_trace_step(scene, state, config)
     grid = time_step_importance(
